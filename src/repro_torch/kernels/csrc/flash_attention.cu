@@ -1,0 +1,332 @@
+// Causal / sliding-window GQA flash attention for Hopper (sm_90a): the
+// prefill attention of every layer.
+//
+// Replaces the TPU kernel `flash_attention` (src/repro/kernels/
+// flash_attention.py, body `_kernel`).  Layouts are the JAX package's:
+//   q (B,H,S,dh); k/v (B,KVH,S,dh); out (B,H,S,dh); H % KVH == 0; dh a
+//   multiple of 8, at most 128.
+// Unlike the TPU kernel, S need not be a multiple of the tile: the ragged
+// tail is masked, since prefill runs prompts of any length.
+//
+// What bounds it on the H100: operations.  Causal attention does about
+// 2·S²·dh flops per head against 4·S·dh elements moved, so past a few
+// hundred tokens the work is far above the ridge point.  This first kernel
+// computes on the CUDA cores in fp32 (fp32 and bf16 storage alike), so it
+// runs far below the tensor-core peak; wgmma and TMA are later work.
+//
+// Design: one CTA of 256 threads per (64-row query tile, b, h).  The query
+// tile and one 64-row K and V tile at a time sit in shared memory as fp32,
+// loaded with 16-byte vectors (each tile is contiguous in memory); each
+// thread owns a 4×4 block of the score tile and a 4×(dh/16) block of the
+// output in registers, reads shared memory as float4 where the layout
+// allows, and keeps the online softmax in fp32.  The probabilities reuse
+// the K tile's shared memory, so two CTAs fit on an SM.  The KV range of
+// each query tile is bounded to the blocks its causal/window mask can
+// reach (first_blk..last_blk, as the TPU kernel bounds its grid), and
+// masked scores are skipped rather than multiplied by zero.  Query tiles
+// are issued longest-first so the causal triangle's heavy tiles start
+// early.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kMaxDh = 128;
+constexpr int kPd = kBK + 4;        // probability row stride (float4-aligned)
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+// a 16-byte vector of T as floats: 4 for float, 8 for bf16
+__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* f,
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
+// reduce over the 16 lanes that share one thread row (tx = lane & 15)
+__device__ __forceinline__ float row_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Stage rows [row0, row0+64) of a (S, dh) matrix into shared memory as
+// fp32 with row stride ld, scaling by `scale`; rows past S become zeros.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+                                      int row0, int S, int dh, float scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vpr = dh / kVec;
+  for (int i = threadIdx.x; i < 64 * vpr; i += kThreads) {
+    const int r = i / vpr, c = (i % vpr) * kVec;
+    float f[kVec];
+    if (row0 + r < S) {
+      const uint4 u = *reinterpret_cast<const uint4*>(
+          src + (long long)(row0 + r) * dh + c);
+      unpack(u, f, T());
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; e += 4)
+      *reinterpret_cast<float4*>(dst + r * ld + c + e) =
+          make_float4(f[e] * scale, f[e + 1] * scale, f[e + 2] * scale,
+                      f[e + 3] * scale);
+  }
+}
+
+// floats of the region holding the K tile and, after the scores, the
+// probabilities
+__host__ __device__ __forceinline__ int kp_size(int ld) {
+  return kBK * ld > kBQ * kPd ? kBK * ld : kBQ * kPd;
+}
+
+// output column of a thread's chunk c (tx = column lane of the thread)
+template <bool VEC4>
+__device__ __forceinline__ int col(int c, int tx) {
+  return VEC4 ? 64 * (c >> 2) + tx * 4 + (c & 3) : tx + 16 * c;
+}
+
+// NC = output column chunks of 16 per thread row (dh <= 16*NC).  VEC4:
+// dh == 16*NC with NC a multiple of 4, so a thread owns runs of 4
+// adjacent columns (tx*4 + 64*h ..) and reads V as float4.
+template <typename T, int NC, bool VEC4>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int H,
+                       int KVH, int S, int dh, int causal, int window,
+                       float scale) {
+  const int nq = gridDim.x;
+  const int qb = nq - 1 - blockIdx.x;          // longest tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;      // 16 x 16 thread grid
+  const int ld = dh + 4;                       // padded, float4-aligned rows
+
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // kBQ * ld
+  float* k_s = q_s + kBQ * ld;                 // K tile, then P (kBQ*kPd)
+  float* v_s = k_s + kp_size(ld);              // kBK * dh
+  float* p_s = k_s;
+
+  const T* qg = q + ((long long)b * H + h) * S * dh;
+  const T* kg = k + ((long long)b * KVH + kvh) * S * dh;
+  const T* vg = v + ((long long)b * KVH + kvh) * S * dh;
+  const int q0 = qb * kBQ;
+  stage(q_s, ld, qg, q0, S, dh, scale);
+
+  // KV blocks this query tile's mask can reach
+  const int q_last = (q0 + kBQ - 1 < S - 1) ? q0 + kBQ - 1 : S - 1;
+  const int n_kb = (S + kBK - 1) / kBK;
+  const int last_blk = causal ? q_last / kBK : n_kb - 1;
+  int first_blk = 0;
+  if (window > 0 && q0 - window + 1 > 0) first_blk = (q0 - window + 1) / kBK;
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kb = first_blk; kb <= last_blk; ++kb) {
+    const int k0 = kb * kBK;
+    __syncthreads();                           // previous tile fully used
+    stage(k_s, ld, kg, k0, S, dh, 1.f);
+    stage(v_s, dh, vg, k0, S, dh, 1.f);
+    __syncthreads();
+
+    // scores for rows ty+16i, cols tx+16j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < dh; d += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * ld + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bb[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * ld + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, bb[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, bb[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, bb[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, bb[j].w, s[i][j]);
+        }
+    }
+    __syncthreads();                           // K tile read: P reuses it
+
+    float corr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      bool ok[4];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        bool o = kpos < S;
+        if (causal) o = o && kpos <= qpos;
+        if (window > 0) o = o && qpos - kpos < window;
+        ok[j] = o;
+        if (o) mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        p_s[(ty + 16 * i) * kPd + tx + 16 * j] = p;
+        sum += p;
+      }
+      corr[i] = expf(m[i] - m_new);
+      l[i] = l[i] * corr[i] + row_sum(sum);
+      m[i] = m_new;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr[i];
+    for (int j = 0; j < kBK; j += 4) {
+      float4 p4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPd + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* vr = v_s + (j + jj) * dh;
+        float vv[NC];
+        if (VEC4) {
+#pragma unroll
+          for (int c = 0; c < NC; c += 4) {
+            const float4 w = *reinterpret_cast<const float4*>(vr + col<VEC4>(c, tx));
+            vv[c] = w.x;
+            vv[c + 1] = w.y;
+            vv[c + 2] = w.z;
+            vv[c + 3] = w.w;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) vv[c] = col<VEC4>(c, tx) < dh ? vr[col<VEC4>(c, tx)] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = jj == 0 ? p4[i].x : jj == 1 ? p4[i].y
+                        : jj == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* o = out + ((long long)b * H + h) * S * dh + (long long)row * dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (col<VEC4>(c, tx) < dh)
+        o[col<VEC4>(c, tx)] = from_f<T>(acc[i][c] * inv);
+  }
+}
+
+template <typename T, int NC, bool VEC4>
+int launch_nc(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int KVH, int S, int dh, int causal, int window,
+              float scale, cudaStream_t stream) {
+  const int ld = dh + 4;
+  const size_t smem = sizeof(float) * (kBQ * ld + kp_size(ld) + kBK * dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, NC, VEC4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  flash_attention_kernel<T, NC, VEC4><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), H, KVH, S, dh, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int KVH, int S, int dh, int causal, int window, float scale,
+           cudaStream_t stream) {
+  if (dh % 8 || dh > kMaxDh) return (int)cudaErrorInvalidValue;
+  if (dh == 128)
+    return launch_nc<T, 8, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  if (dh == 64)
+    return launch_nc<T, 4, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  if (dh <= 16)
+    return launch_nc<T, 1, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  if (dh <= 32)
+    return launch_nc<T, 2, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  if (dh <= 64)
+    return launch_nc<T, 4, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  return launch_nc<T, 8, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  causal: 0/1.  window <= 0 = none.
+// Returns the cudaError_t of the launch (0 = launched).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* out, int B, int H,
+                                      int KVH, int S, int dh, int causal,
+                                      int window, float scale, int dtype,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S <= 0) return 0;
+  if (dtype == 0)
+    return launch<float>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, out, B, H, KVH, S, dh, causal,
+                                 window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

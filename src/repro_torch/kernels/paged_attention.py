@@ -1,0 +1,80 @@
+"""Fused paged decode step: append the new token's K/V and attend over the
+slot's pages in one launch (CUDA C++ kernel ``csrc/paged_decode_step.cu``).
+
+The port of the TPU kernel ``repro.kernels.paged_attention.
+paged_decode_step``, with the same layouts: q (B,H,dh); k_new/v_new
+(B,KVH,dh); k/v pools (P,ps,KVH,dh) whose last page P-1 is the trash
+page; page_table (B,MP) int32 (-1 = unallocated); lens (B,) int32 token
+counts INCLUDING the new token.  The pools are updated in place.
+
+A CPU tensor runs the plain version (``ref.paged_decode_step_ref``); a
+CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import paged_decode_step_ref
+
+MAX_HEAD_DIM = 256
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
+                      *, window=None):
+    """Returns (out (B,H,dh), k_pages, v_pages); the pools are the caller's
+    tensors, written in place.  ``paged_decode_step.launches`` counts the
+    kernel launches (CPU calls are not counted)."""
+    if q.device.type == "cpu":
+        return paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages,
+                                     page_table, lens, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_step runs on cpu or cuda, not "
+                         f"{q.device}")
+    B, H, dh = q.shape
+    P, ps, KVH, dh_p = k_pages.shape
+    MP = page_table.shape[-1]
+    if (dh_p != dh or H % KVH or k_new.shape != (B, KVH, dh)
+            or v_new.shape != k_new.shape or v_pages.shape != k_pages.shape
+            or page_table.shape != (B, MP) or lens.shape != (B,)):
+        raise ValueError(
+            f"paged_decode_step shapes: q {tuple(q.shape)}, k_new "
+            f"{tuple(k_new.shape)}, pools {tuple(k_pages.shape)}, table "
+            f"{tuple(page_table.shape)}, lens {tuple(lens.shape)}")
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"the decode-step kernel takes dh a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}, not {dh}")
+    if q.dtype != k_pages.dtype or v_pages.dtype != k_pages.dtype:
+        raise TypeError("q and both pools must share one dtype")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("the pools are written in place and must be "
+                         "contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    tensors = (q, k_new, v_new, k_pages, v_pages, page_table, lens)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_decode_step operands must share one device")
+    code = _build.dtype_code(q.dtype)
+    q = q.contiguous()
+    k_new = k_new.to(k_pages.dtype).contiguous()
+    v_new = v_new.to(k_pages.dtype).contiguous()
+    table = page_table.to(torch.int32).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    fn = _build.function("paged_decode_step", "paged_decode_step_launch",
+                         _ARGTYPES)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), B, H, KVH, dh, P, ps, MP,
+             window or 0, 1.0 / math.sqrt(dh), code, _build.stream_of(q))
+    _build.check(err, "paged_decode_step")
+    paged_decode_step.launches += 1
+    return out, k_pages, v_pages
+
+
+paged_decode_step.launches = 0

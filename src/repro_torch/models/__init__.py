@@ -1,0 +1,14 @@
+from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, PageTable,
+                                          PrefixIndex, paged_geometry,
+                                          pages_for)
+from repro_torch.models.model import (decode_step, forward,
+                                      init_paged_cache, init_params,
+                                      paged_copy_page, paged_prefill_scatter,
+                                      paged_suffix_prefill,
+                                      supports_prefix_sharing)
+
+__all__ = ["init_params", "forward", "decode_step", "PageTable",
+           "pages_for", "init_paged_cache", "paged_prefill_scatter",
+           "DEFAULT_PAGE_SIZE", "paged_geometry", "PrefixIndex",
+           "paged_suffix_prefill", "paged_copy_page",
+           "supports_prefix_sharing"]

@@ -1,0 +1,277 @@
+"""Shared layers of the dense decoder: norms, RoPE, attention (flash
+prefill, fused paged decode, paged suffix prefill) and the FFNs.
+
+The PyTorch counterpart of ``repro.models.layers``.  Parameters are plain
+dicts of tensors; functions take and return tensors in the JAX package's
+layouts.  ``attn_impl="kernel"`` (the default) sends causal prefill
+attention to the flash kernel and the decode step to the fused paged
+kernel; ``attn_impl="plain"`` computes the same attention with plain
+tensor ops (masked softmax over gathered pages), used as an independent
+check of the kernel path.  Plain matrix products stay ``torch.matmul``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention, paged_decode_step
+
+Params = Dict[str, Any]
+
+NEG_INF = -1e30
+ATTN_IMPLS = ("kernel", "plain")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not "
+                         f"{impl!r}")
+
+
+# ---------------------------------------------------------------- init utils
+def dense_init(gen, d_in, d_out, dtype, device):
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen, vocab, d, dtype, device):
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------- norms
+def init_norm(cfg, dtype, device):
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "ln":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x, cfg):
+    xf = x.float()
+    if cfg.norm == "rms":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + cfg.norm_eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_dim(cfg) -> int:
+    d = int(cfg.d_head * cfg.rope_pct)
+    return d - d % 2
+
+
+def apply_rope(x, positions, cfg):
+    """x: (B, S, H, dh); positions: (B, S) int.  The frequencies are built
+    in fp32, as the JAX package builds them."""
+    rd = rope_dim(cfg)
+    if rd == 0:
+        return x
+    half = rd // 2
+    theta = torch.tensor(cfg.rope_theta, dtype=torch.float32, device=x.device)
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[..., None] * freqs                  # (B,S,half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., :half], xr[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return torch.cat([rot.to(x.dtype), xp], -1)
+
+
+# ----------------------------------------------------------------- attention
+def init_attention(cfg, gen, dtype, device) -> Params:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {"wq": dense_init(gen, d, h * dh, dtype, device),
+         "wk": dense_init(gen, d, kv * dh, dtype, device),
+         "wv": dense_init(gen, d, kv * dh, dtype, device),
+         "wo": dense_init(gen, h * dh, d, dtype, device)}
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=device)
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = zeros(h * dh), zeros(kv * dh), \
+            zeros(kv * dh)
+    if cfg.out_bias:
+        p["bo"] = zeros(d)
+    return p
+
+
+def _qkv(p, x, cfg, positions, rope: bool):
+    B, S, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, h, dh)
+    k = k.reshape(B, S, kv, dh)
+    v = v.reshape(B, S, kv, dh)
+    if rope:
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
+    return q, k, v
+
+
+def _out_proj(p, o, cfg):
+    B, S = o.shape[:2]
+    out = o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+    if cfg.out_bias:
+        out = out + p["bo"]
+    return out
+
+
+def _sdpa(q, k, v, mask, cfg):
+    """Masked softmax attention. q:(B,Sq,H,dh) k/v:(B,Sk,kv,dh),
+    mask:(B,Sq,Sk) bool (True = attend). Returns (B,Sq,H,dh)."""
+    B, Sq, H, dh = q.shape
+    kv = k.shape[2]
+    g = H // kv
+    qg = q.reshape(B, Sq, kv, g, dh) / math.sqrt(dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+    return o.reshape(B, Sq, H, dh)
+
+
+def full_attention(p, x, cfg, positions, *, rope=True,
+                   window: Optional[int] = None, attn_impl: str = "kernel"):
+    """Causal self-attention over a whole sequence whose positions are
+    0..S-1 (prompt prefill).  ``attn_impl="kernel"`` runs the flash
+    kernel.  Returns (out, (k, v)) with k/v (B,S,kv,dh) for the cache.
+    The JAX package's non-causal and ``kv_override`` paths serve the
+    encoder-decoder family only and are not ported."""
+    _check_impl(attn_impl)
+    q, k, v = _qkv(p, x, cfg, positions, rope)
+    if attn_impl == "kernel":
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, window=window)
+        o = o.transpose(1, 2)
+    else:
+        mask = positions[:, :, None] >= positions[:, None, :]
+        if window is not None:
+            mask &= positions[:, :, None] - positions[:, None, :] < window
+        o = _sdpa(q, k, v, mask, cfg)
+    return _out_proj(p, o, cfg), (k, v)
+
+
+def paged_decode_attention(p, x, pool, cfg, positions, page_table, *,
+                           rope=True, window: Optional[int] = None,
+                           attn_impl: str = "kernel"):
+    """Single-token decode against the shared page pool.
+
+    x: (B,1,d) with B == n_slots; positions: (B,) int; pool: {"k","v"} of
+    shape (P, page_size, kv, dh) whose LAST page is the trash page;
+    page_table: (B, MP) int32 page ids, -1 empty.  The new token's K/V land
+    in the page covering ``positions`` (FREE rows: the trash page), then
+    attention runs over the slot's own pages.  ``attn_impl="kernel"`` runs
+    the fused decode-step kernel.  The pools are updated in place.
+    Returns (out (B,1,d), pool)."""
+    _check_impl(attn_impl)
+    B = x.shape[0]
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    q, k_new, v_new = _qkv(p, x, cfg, positions[:, None], rope)
+    if attn_impl == "kernel":
+        o, _, _ = paged_decode_step(q[:, 0], k_new[:, 0], v_new[:, 0],
+                                    pool["k"], pool["v"], page_table,
+                                    positions + 1, window=window)
+        o = o[:, None]
+    else:
+        P, ps = pool["k"].shape[0], pool["k"].shape[1]
+        MP = page_table.shape[1]
+        table = page_table.long()
+        pos = positions.long()
+        bidx = torch.arange(B, device=x.device)
+        pg = table[bidx, (pos // ps).clamp(0, MP - 1)]
+        pg = torch.where(pg >= 0, pg, P - 1)              # FREE -> trash
+        pool["k"][pg, pos % ps] = k_new[:, 0].to(pool["k"].dtype)
+        pool["v"][pg, pos % ps] = v_new[:, 0].to(pool["v"].dtype)
+        pt = torch.where(table >= 0, table, P - 1)
+        kg = pool["k"][pt].reshape(B, MP * ps, kv, dh)
+        vg = pool["v"][pt].reshape(B, MP * ps, kv, dh)
+        t = torch.arange(MP * ps, device=x.device)[None]
+        valid = (t <= pos[:, None]) & (
+            torch.repeat_interleave(table, ps, dim=1) >= 0)
+        if window is not None:
+            valid &= pos[:, None] - t < window
+        o = _sdpa(q, kg, vg, valid[:, None, :], cfg)
+    return _out_proj(p, o, cfg), pool
+
+
+def paged_suffix_attention(p, x, pool, cfg, positions, pt_row, *,
+                           rope=True, window: Optional[int] = None):
+    """Suffix-only prefill against the shared page pool (prefix sharing).
+
+    x: (1,S,d), the un-cached suffix of one prompt whose shared prefix K/V
+    already sit in the slot's leading pages; positions: (1,S) absolute
+    positions; pt_row: (MP,) the slot's page-table row.  The suffix K/V are
+    written into the slot's pages (in place), then every suffix query
+    attends over the slot's whole table expansion, masked to its causal
+    position.  No TPU kernel covers this path: plain tensor ops, as in the
+    JAX package.  Returns (out (1,S,d), pool)."""
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    q, k_new, v_new = _qkv(p, x, cfg, positions, rope)       # (1,S,.,dh)
+    P, ps = pool["k"].shape[0], pool["k"].shape[1]
+    MP = pt_row.shape[0]
+    row = pt_row.long()
+    tpos = positions[0].long()                               # (S,)
+    pg = row[(tpos // ps).clamp(0, MP - 1)]
+    pg = torch.where(pg >= 0, pg, P - 1)                     # FREE -> trash
+    pool["k"][pg, tpos % ps] = k_new[0].to(pool["k"].dtype)
+    pool["v"][pg, tpos % ps] = v_new[0].to(pool["v"].dtype)
+    pt = torch.where(row >= 0, row, P - 1)
+    kg = pool["k"][pt].reshape(1, MP * ps, kv, dh)
+    vg = pool["v"][pt].reshape(1, MP * ps, kv, dh)
+    t = torch.arange(MP * ps, device=x.device)[None, None, :]
+    qpos = positions.long()[:, :, None]                      # (1,S,1)
+    valid = (t <= qpos) & (torch.repeat_interleave(row, ps) >= 0)[None, None]
+    if window is not None:
+        valid &= qpos - t < window
+    o = _sdpa(q, kg, vg, valid, cfg)
+    return _out_proj(p, o, cfg), pool
+
+
+# ----------------------------------------------------------------------- FFN
+def gated_mlp(cfg) -> bool:
+    return cfg.act == "silu" or cfg.family == "hybrid"
+
+
+def init_ffn(cfg, gen, dtype, device, d_ff=None) -> Params:
+    d_ff = d_ff or cfg.d_ff
+    p = {"w_in": dense_init(gen, cfg.d_model, d_ff, dtype, device),
+         "w_out": dense_init(gen, d_ff, cfg.d_model, dtype, device)}
+    if gated_mlp(cfg):
+        p["w_gate"] = dense_init(gen, cfg.d_model, d_ff, dtype, device)
+    if cfg.mlp_bias:
+        p["b_in"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["b_out"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def _act(cfg, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def apply_ffn(p, x, cfg):
+    h = x @ p["w_in"]
+    if cfg.mlp_bias:
+        h = h + p["b_in"]
+    if "w_gate" in p:
+        h = _act(cfg, x @ p["w_gate"]) * h
+    else:
+        h = _act(cfg, h)
+    out = h @ p["w_out"]
+    if cfg.mlp_bias:
+        out = out + p["b_out"]
+    return out
+

@@ -1,0 +1,201 @@
+"""The port's kernels against the JAX package, on the same numpy inputs.
+
+On the CPU each wrapper runs its plain PyTorch version, held here to the
+JAX package's oracles (``repro.kernels.ref``) and to its Pallas kernels in
+interpret mode, as ``tests/test_kernel_fuzz.py`` runs them, over that
+harness's shape buckets (ragged lens, shuffled tables, windows, bf16).
+Tolerances are the harness's: 2e-5 in fp32 and 2e-2 in bf16, with the
+pools byte-equal outside the trash page.  ``tests/test_torch_gpu.py``
+holds the CUDA kernels to these plain versions on the card.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import flash_attention as pallas_flash
+from repro.kernels.ops import paged_decode_step as pallas_step
+from repro.kernels.ref import flash_attention_ref as _jax_flash_ref
+from repro.kernels.ref import paged_decode_step_ref as _jax_step_ref
+from repro_torch.kernels import flash_attention, paged_decode_step
+
+# jitted as the fuzz harness jits them: one trace per bucket, not per case
+jax_step_ref = functools.partial(jax.jit, static_argnames=("window",))(
+    _jax_step_ref)
+jax_flash_ref = functools.partial(
+    jax.jit, static_argnames=("causal", "window"))(_jax_flash_ref)
+
+SEED = 20261016
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+# the fuzz harness's buckets: (B, H, KVH, dh, ps, MP, window, dtype)
+PAGED_BUCKETS = [
+    (3, 4, 2, 32, 8, 4, None, "f32"),
+    (2, 4, 4, 16, 16, 3, 12, "f32"),
+    (1, 2, 1, 32, 8, 5, None, "bf16"),
+    (4, 8, 2, 16, 4, 6, 7, "f32"),
+    (2, 4, 2, 16, 16, 2, None, "bf16"),
+    (3, 2, 2, 8, 8, 3, 5, "bf16"),
+    (2, 6, 3, 16, 8, 4, None, "f32"),
+]
+PAGED_BLOCK_KS = [None, 4, 2, None, 8, None, 4]
+# (B, H, KVH, S, dh, causal, window, bq, bk, dtype)
+FLASH_BUCKETS = [
+    (2, 4, 2, 64, 32, True, None, 32, 32, "f32"),
+    (1, 4, 4, 128, 16, True, 48, 64, 64, "f32"),
+    (2, 2, 1, 64, 16, False, None, 32, 32, "bf16"),
+    (1, 8, 2, 64, 32, True, 16, 16, 16, "bf16"),
+    (1, 2, 2, 128, 32, True, None, 64, 32, "f32"),
+    (2, 4, 2, 64, 16, True, 64, 32, 64, "f32"),
+]
+CASES_PER_BUCKET = 3
+
+
+def _tol(name):
+    return 2e-2 if name == "bf16" else 2e-5
+
+
+def _ragged_len(rng, ps, MP):
+    """Edge-heavy length draw: 0/1, page boundaries ±1, full, uniform."""
+    hi = MP * ps
+    kp = int(rng.integers(1, MP + 1)) * ps
+    picks = [0, 1, ps - 1, ps, ps + 1, kp - 1, kp, kp + 1, hi,
+             int(rng.integers(0, hi + 1))]
+    return int(np.clip(picks[int(rng.integers(len(picks)))], 0, hi))
+
+
+def _page_table(rng, B, P, MP, ps, lens):
+    """Per-slot page lists from a SHUFFLED permutation; -1 unallocated;
+    page P-1 is the trash page."""
+    table = np.full((B, MP), -1, np.int32)
+    free = list(rng.permutation(P - 1))
+    for b, n in enumerate(lens):
+        for i in range(-(-n // ps)):
+            table[b, i] = free.pop()
+    return table
+
+
+def _step_case(bucket, i):
+    B, H, KVH, dh, ps, MP, window, dt = bucket
+    rng = np.random.default_rng([SEED, 2, i])
+    P = B * MP + 2
+    lens = np.asarray([_ragged_len(rng, ps, MP) for _ in range(B)], np.int32)
+    arrs = dict(q=rng.standard_normal((B, H, dh)),
+                kn=rng.standard_normal((B, KVH, dh)),
+                vn=rng.standard_normal((B, KVH, dh)),
+                k=rng.standard_normal((P, ps, KVH, dh)),
+                v=rng.standard_normal((P, ps, KVH, dh)))
+    table = _page_table(rng, B, P, MP, ps, lens)
+    return arrs, table, lens, window, dt
+
+
+def _jax(arrs, dt):
+    return {n: jnp.asarray(a, DTYPES[dt][0]) for n, a in arrs.items()}
+
+
+def _torch(arrs, dt):
+    return {n: torch.tensor(a, dtype=torch.float32).to(DTYPES[dt][1])
+            for n, a in arrs.items()}
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _port_step(t, table, lens, window):
+    return paged_decode_step(t["q"], t["kn"], t["vn"], t["k"].clone(),
+                             t["v"].clone(), torch.from_numpy(table),
+                             torch.from_numpy(lens), window=window)
+
+
+@pytest.mark.parametrize("bidx", range(len(PAGED_BUCKETS)))
+def test_paged_decode_step_plain_matches_jax(bidx):
+    """Port plain step vs the JAX oracle AND the Pallas kernel (interpret
+    mode, with the bucket's block_k): outputs within tolerance, pools
+    byte-equal outside the trash page."""
+    bucket = PAGED_BUCKETS[bidx]
+    for i in range(bidx * CASES_PER_BUCKET, (bidx + 1) * CASES_PER_BUCKET):
+        arrs, table, lens, window, dt = _step_case(bucket, i)
+        P = arrs["k"].shape[0]
+        out, ko, vo = _port_step(_torch(arrs, dt), table, lens, window)
+        j = _jax(arrs, dt)
+        jt, jl = jnp.asarray(table), jnp.asarray(lens)
+        ref = jax_step_ref(j["q"], j["kn"], j["vn"], j["k"], j["v"], jt, jl,
+                           window=window)
+        pal = pallas_step(j["q"], j["kn"], j["vn"], j["k"], j["v"], jt, jl,
+                          window=window, block_k=PAGED_BLOCK_KS[bidx])
+        msg = f"bucket={bucket} case={i} lens={lens.tolist()}"
+        for name, (ro, rk, rv) in (("ref", ref), ("pallas", pal)):
+            np.testing.assert_allclose(_np(out), _np(ro), atol=_tol(dt),
+                                       rtol=_tol(dt), err_msg=f"{name} {msg}")
+            np.testing.assert_array_equal(_np(ko)[:P - 1], _np(rk)[:P - 1],
+                                          err_msg=f"{name} {msg}")
+            np.testing.assert_array_equal(_np(vo)[:P - 1], _np(rv)[:P - 1],
+                                          err_msg=f"{name} {msg}")
+
+
+def test_paged_decode_step_free_slot_writes_only_trash():
+    """A FREE slot (row all -1) writes only the trash page and its output
+    is softmax over the new token alone: v_new itself."""
+    arrs, _, _, _, _ = _step_case(PAGED_BUCKETS[0], 999)
+    t = _torch(arrs, "f32")
+    B, MP = 3, 4
+    table = np.full((B, MP), -1, np.int32)
+    lens = np.asarray([0, 5, 17], np.int32)
+    k0 = t["k"].clone()
+    out, ko, _ = paged_decode_step(t["q"], t["kn"], t["vn"], t["k"],
+                                   t["v"], torch.from_numpy(table),
+                                   torch.from_numpy(lens))
+    assert torch.equal(ko[:-1], k0[:-1])
+    g = out.shape[1] // t["vn"].shape[1]
+    want = t["vn"].repeat_interleave(g, dim=1)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+def _flash_inputs(B, H, KVH, S, dh, seed):
+    rng = np.random.default_rng([SEED, 4, seed])
+    return dict(q=rng.standard_normal((B, H, S, dh)),
+                k=rng.standard_normal((B, KVH, S, dh)),
+                v=rng.standard_normal((B, KVH, S, dh)))
+
+
+@pytest.mark.parametrize("bidx", range(len(FLASH_BUCKETS)))
+def test_flash_attention_plain_matches_jax(bidx):
+    B, H, KVH, S, dh, causal, window, bq, bk, dt = FLASH_BUCKETS[bidx]
+    for i in range(2):
+        arrs = _flash_inputs(B, H, KVH, S, dh, bidx * 10 + i)
+        t, j = _torch(arrs, dt), _jax(arrs, dt)
+        out = flash_attention(t["q"], t["k"], t["v"], causal=causal,
+                              window=window)
+        ref = jax_flash_ref(j["q"], j["k"], j["v"], causal=causal,
+                            window=window)
+        pal = pallas_flash(j["q"], j["k"], j["v"], causal=causal,
+                           window=window, bq=bq, bk=bk)
+        for name, r in (("ref", ref), ("pallas", pal)):
+            np.testing.assert_allclose(
+                _np(out), _np(r), atol=_tol(dt), rtol=_tol(dt),
+                err_msg=f"{name} bucket={FLASH_BUCKETS[bidx]} case={i}")
+
+
+@pytest.mark.parametrize("S,window", [(1, None), (17, None), (33, 8),
+                                      (100, None), (100, 24)])
+def test_flash_attention_plain_ragged_lengths(S, window):
+    """Prefill runs any prompt length: the port takes S that no tile
+    divides (the Pallas kernel asserts S % bq == 0), held to the oracle."""
+    arrs = _flash_inputs(1, 4, 2, S, 16, S)
+    t, j = _torch(arrs, "f32"), _jax(arrs, "f32")
+    out = flash_attention(t["q"], t["k"], t["v"], causal=True, window=window)
+    ref = jax_flash_ref(j["q"], j["k"], j["v"], causal=True, window=window)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_wrappers_reject_other_devices():
+    t = torch.zeros((1, 2, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(t, t, t)
