@@ -7,20 +7,33 @@ Phases (any failure exits non-zero, with no result line):
   1. build every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, in
-     fp32 (TF32 off) and bf16, at the fuzz harness's tolerances (2e-5 and
-     2e-2), at the serving path's shapes and at the edge cases; time the
-     kernel, its plain version and, where one exists, a PyTorch library
-     call computing the same function (a yardstick the port never calls);
+     fp32 (TF32 off) and bf16, at the test tolerances (2e-5 and 2e-2 for
+     attention, 1e-4 and 5e-2 for the RG-LRU scan), at the serving paths'
+     shapes and at the edge cases; time the kernel, its plain version and,
+     where one exists, a PyTorch library call computing the same function
+     (a yardstick the port never calls);
   3. serve full-width qwen2.5-3b (36 layers, d_model 2048, random bf16
      weights from a seed) through ``ContinuousBatchingEngine`` with prefix
-     sharing on, and check that the kernels carried every attention
-     layer: decode-step launches == 36 × decode ticks, flash launches ==
-     36 × fresh prefills;
-  4. serve a few requests in fp32 and re-run each one teacher-forced
-     through ``forward`` + ``decode_step`` with the plain attention: every
-     engine token must equal the reference argmax wherever the reference's
-     top-2 logit margin exceeds MARGIN.
-The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
+     sharing on, then through ``InferenceEngine`` and the striped
+     ``paged=False`` engine, and check that the kernels carried every
+     attention layer: decode-step (paged) or ring-decode (striped)
+     launches == 36 × decode steps, flash launches == 36 × fresh
+     prefills;
+  4. serve a few qwen2.5-3b requests in fp32 and re-run each one
+     teacher-forced through ``forward`` + ``decode_step`` with the plain
+     attention: every engine token must equal the reference argmax
+     wherever the reference's top-2 logit margin exceeds MARGIN;
+  5. serve full-width recurrentgemma-2b (26 layers: 18 RG-LRU and 8
+     local-attention layers with window 2048, d_model 2560, random bf16
+     weights) through ``InferenceEngine``, the striped engine (ring of
+     2048 in a 3072-token pool: a 2600-token prompt keeps its last 2048
+     tokens, a decode crosses 2048) and the paged engine, with the
+     launches of all three kernels on the path asserted per path;
+  6. the same three paths in fp32 on a few requests, each token held to
+     the plain teacher-forced argmax (plain attention AND plain scan).
+Each path is driven with every launch count set to 0 just before it and
+read just after.  The last two lines are the kernels' JSON record and
+``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -36,8 +49,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernel_fuzz.py
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
 MARGIN = 1e-3                  # top-2 logit margin for the fp32 check
-N_LAYERS = 36
+N_LAYERS = 36                  # qwen2.5-3b: every layer is attention
+HYBRID_ATTN, HYBRID_REC = 8, 18   # recurrentgemma-2b's 26 layers
+PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
 
 
 def log(msg: str) -> None:
@@ -80,9 +96,9 @@ class ErrLog:
     def __init__(self):
         self.err = {}
 
-    def check(self, name, dtype, out, ref, what):
+    def check(self, name, dtype, out, ref, what, tol=None):
         import torch
-        tol = TOL[dtype]
+        tol = tol if tol is not None else TOL[dtype]
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol, msg=lambda m: f"{what}: {m}")
         e = (out.float() - ref.float()).abs().max().item()
@@ -111,83 +127,228 @@ def _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free=()):
 
 
 def check_paged_step(errs, dtype_name):
+    """The fused step at qwen2.5-3b's paged shape (8 slots, 16/2 heads,
+    dh 128, a 2048-token pool) and recurrentgemma-2b's (8 slots, 10/1
+    heads: g = 10 query heads per CTA, more than its 8 warps; dh 256; a
+    3072-token pool, window 2048 on and off), over edge lens, FREE rows
+    and a NaN trash page; the pools must be byte-equal outside the trash
+    page."""
     import torch
     from repro_torch.kernels import paged_decode_step
     from repro_torch.kernels.ref import paged_decode_step_ref
     dtype = getattr(torch, dtype_name)
-    B, H, KVH, dh, ps, max_len = 8, 16, 2, 128, 16, 2048
-    MP = max_len // ps
     gen = torch.Generator(device="cuda").manual_seed(1)
-    full = MP * ps
-    edge = [0, 1, ps - 1, ps, ps + 1, full, 700, 1500]
-    cases = [("edge lens", torch.tensor(edge), None, ()),
-             ("edge lens, window 100", torch.tensor(edge), 100, ()),
-             ("FREE rows 2 and 5", torch.tensor([300, 9, 0, 47, 1024, 0, 17,
-                                                 2048]), None, (2, 5)),
-             ("random lens, window 512",
-              torch.randint(0, full + 1, (B,), generator=torch.Generator()
-                            .manual_seed(7)), 512, ())]
-    for what, lens, window, free in cases:
-        x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free)
-        P = x["k"].shape[0]
-        args = (x["q"], x["kn"], x["vn"])
-        out, ko, vo = paged_decode_step(*args, x["k"].clone(), x["v"].clone(),
-                                        x["table"], x["lens"], window=window)
-        ref, kr, vr = paged_decode_step_ref(*args, x["k"].clone(),
+    B, ps = 8, 16
+    # (label, H, KVH, dh, max_len, edge lens, FREE-case lens (rows 2 and 5
+    # FREE), window of the edge case, window of the FREE and random cases)
+    shapes = [("qwen", 16, 2, 128, 2048, [0, 1, ps - 1, ps, ps + 1, 2048,
+                                          700, 1500],
+               [300, 9, 0, 47, 1024, 0, 17, 2048], 100, 512),
+              ("recurrentgemma", 10, 1, 256, 3072,
+               [0, 1, ps + 1, 2048, 2049, 2600, 3072, 1500],
+               [2500, 9, 0, 47, 2049, 0, 17, 3072], 2048, 2048)]
+    for label, H, KVH, dh, max_len, edge, free_lens, w_edge, w_rand in shapes:
+        MP = max_len // ps
+        full = MP * ps
+        edge, free_lens = torch.tensor(edge), torch.tensor(free_lens)
+        cases = [("edge lens", edge, None, ()),
+                 (f"edge lens, window {w_edge}", edge, w_edge, ()),
+                 ("FREE rows 2 and 5", free_lens, None, (2, 5)),
+                 (f"FREE rows 2 and 5, window {w_rand}", free_lens, w_rand,
+                  (2, 5)),
+                 (f"random lens, window {w_rand}", torch.randint(
+                     0, full + 1, (B,), generator=torch.Generator()
+                     .manual_seed(7)), w_rand, ())]
+        for what, lens, window, free in cases:
+            what = f"{label} H={H} KVH={KVH} dh={dh} {what}"
+            x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free)
+            P = x["k"].shape[0]
+            args = (x["q"], x["kn"], x["vn"])
+            out, ko, vo = paged_decode_step(*args, x["k"].clone(),
                                             x["v"].clone(), x["table"],
                                             x["lens"], window=window)
-        torch.cuda.synchronize()
-        errs.check("paged_decode_step", dtype_name, out, ref,
-                   f"paged_decode_step {dtype_name} {what}")
-        if not (torch.equal(ko[:P - 1], kr[:P - 1])
-                and torch.equal(vo[:P - 1], vr[:P - 1])):
-            raise AssertionError(f"paged_decode_step {dtype_name} {what}: "
-                                 f"pools differ outside the trash page")
-        if what.startswith("FREE"):
-            # NaN garbage in the trash page must not reach any output
-            kn_, vn_ = x["k"].clone(), x["v"].clone()
-            kn_[P - 1] = float("nan")
-            vn_[P - 1] = float("nan")
-            out2, _, _ = paged_decode_step(*args, kn_, vn_, x["table"],
-                                           x["lens"], window=window)
+            ref, kr, vr = paged_decode_step_ref(*args, x["k"].clone(),
+                                                x["v"].clone(), x["table"],
+                                                x["lens"], window=window)
             torch.cuda.synchronize()
-            if not torch.isfinite(out2.float()).all():
-                raise AssertionError("NaN trash page reached the output")
-            errs.check("paged_decode_step", dtype_name, out2, ref,
-                       f"paged_decode_step {dtype_name} NaN trash")
+            errs.check("paged_decode_step", dtype_name, out, ref,
+                       f"paged_decode_step {dtype_name} {what}")
+            if not (torch.equal(ko[:P - 1], kr[:P - 1])
+                    and torch.equal(vo[:P - 1], vr[:P - 1])):
+                raise AssertionError(f"paged_decode_step {dtype_name} {what}"
+                                     f": pools differ outside the trash page")
+            if free:
+                # NaN garbage in the trash page must not reach any output
+                kn_, vn_ = x["k"].clone(), x["v"].clone()
+                kn_[P - 1] = float("nan")
+                vn_[P - 1] = float("nan")
+                out2, _, _ = paged_decode_step(*args, kn_, vn_, x["table"],
+                                               x["lens"], window=window)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out2.float()).all():
+                    raise AssertionError(f"{what}: NaN trash page reached "
+                                         f"the output")
+                errs.check("paged_decode_step", dtype_name, out2, ref,
+                           f"paged_decode_step {dtype_name} {what} NaN trash")
 
 
 def check_flash(errs, dtype_name):
+    """qwen2.5-3b's prefill shape (H=16, KVH=2, dh=128) and
+    recurrentgemma-2b's (H=10, KVH=1, dh=256, window 2048)."""
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for S in (1, 17, 128, 1000, 2048):
-        for window in (None, 256):
-            f = lambda h: torch.randn((1, h, S, 128), generator=gen,
-                                      device="cuda").to(dtype)
-            q, k, v = f(16), f(2), f(2)
-            out = flash_attention(q, k, v, causal=True, window=window)
-            ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    cases = [(16, 2, 128, S, w) for S in (1, 17, 128, 1000, 2048)
+             for w in (None, 256)]
+    cases += [(10, 1, 256, S, w) for S in (1, 17, 2048, 2600)
+              for w in (None, 2048)]
+    for H, KVH, dh, S, window in cases:
+        f = lambda h: torch.randn((1, h, S, dh), generator=gen,
+                                  device="cuda").to(dtype)
+        q, k, v = f(H), f(KVH), f(KVH)
+        out = flash_attention(q, k, v, causal=True, window=window)
+        ref = flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        errs.check("flash_attention", dtype_name, out, ref,
+                   f"flash_attention {dtype_name} H={H} KVH={KVH} dh={dh} "
+                   f"S={S} window={window}")
+
+
+def check_paged_attention(errs, dtype_name):
+    """Read-only paged attention over the decode step's edge set, whose
+    lens include 0 (a row with no valid token: the uniform mean over all
+    MP·ps entries) and FREE rows."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for H, KVH, dh, ps, max_len in ((16, 2, 128, 16, 2048),
+                                    (10, 1, 256, 16, 3072)):
+        B, MP = 8, max_len // ps
+        full = MP * ps
+        edge = torch.tensor([0, 1, ps - 1, ps, ps + 1, full, 700, 1500])
+        cases = [("edge lens", edge, None, ()),
+                 ("edge lens, window 100", edge, 100, ()),
+                 ("FREE rows 2 and 5", torch.tensor(
+                     [300, 9, 0, 47, 1024, 5, 17, 2048]), None, (2, 5)),
+                 ("random lens, window 512", torch.randint(
+                     0, full + 1, (B,), generator=torch.Generator()
+                     .manual_seed(8)), 512, ())]
+        for what, lens, window, free in cases:
+            x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free)
+            args = (x["q"], x["k"], x["v"], x["table"], x["lens"])
+            out = paged_decode_attention(*args, window=window)
+            ref = paged_decode_attention_ref(*args, window=window)
             torch.cuda.synchronize()
-            errs.check("flash_attention", dtype_name, out, ref,
-                       f"flash_attention {dtype_name} S={S} window={window}")
+            errs.check("paged_decode_attention", dtype_name, out, ref,
+                       f"paged_decode_attention {dtype_name} H={H} dh={dh} "
+                       f"{what}")
+
+
+def _ring_inputs(gen, B, H, KVH, W, dh, fills, dtype):
+    """Ring caches: row b holds positions fill-W..fill-1 (all of 0..fill-1
+    when fill <= W) at slots pos % W; empty slots keep random garbage."""
+    import torch
+    spos = torch.full((B, W), -1, dtype=torch.int32)
+    for b, fill in enumerate(fills):
+        t = torch.arange(max(fill - W, 0), fill)
+        spos[b, t % W] = t.to(torch.int32)
+    f = lambda *shape: torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+    return (f(B, H, dh), f(B, W, KVH, dh), f(B, W, KVH, dh),
+            spos.to("cuda"),
+            torch.tensor([n - 1 for n in fills], dtype=torch.int32,
+                         device="cuda"))
+
+
+# the fuzz harness's ring buckets (tests/test_kernel_fuzz.py)
+DECODE_BUCKETS = [(2, 4, 2, 32, 32, None), (2, 4, 1, 64, 16, 24),
+                  (1, 8, 8, 32, 16, None), (3, 2, 2, 64, 32, 16),
+                  (2, 4, 2, 64, 16, None), (1, 2, 1, 32, 64, 8)]
+
+
+def check_decode(errs, dtype_name):
+    """Ring decode at recurrentgemma-2b's serving shape (8 slots, 10/1
+    heads, dh 256, W = window = 2048; rings filled to 1, W-1, W and
+    wrapped past W), qwen2.5-3b's striped shape (16/2 heads, dh 128, a
+    linear 2048 cache) and the fuzz buckets."""
+    import torch
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rng = torch.Generator().manual_seed(13)
+    W = 2048
+    serving = [1, W - 1, W, W + 1, 3000, 2 * W, 5000, 100]
+    cases = [("recurrentgemma", 8, 10, 1, W, 256, serving, w)
+             for w in (2048, None)]
+    cases.append(("qwen", 8, 16, 2, W, 128,
+                  [1, 17, 500, 1024, W - 1, W, 300, 64], None))
+    for bi, (B, H, KVH, Wb, dh, window) in enumerate(DECODE_BUCKETS):
+        for i in range(3):
+            fills = torch.randint(1, 2 * Wb + 1, (B,), generator=rng)
+            cases.append((f"fuzz bucket {bi}", B, H, KVH, Wb, dh,
+                          fills.tolist(), window))
+    for what, B, H, KVH, Wc, dh, fills, window in cases:
+        args = _ring_inputs(gen, B, H, KVH, Wc, dh, fills, dtype)
+        out = decode_attention(*args, window=window)
+        ref = decode_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        errs.check("decode_attention", dtype_name, out, ref,
+                   f"decode_attention {dtype_name} {what} fills={fills} "
+                   f"window={window}")
+
+
+def check_scan(errs, dtype_name):
+    """RG-LRU scan at recurrentgemma-2b's width (d 2560; S = 1, 17, 1000,
+    2600; B = 1, 8) and tests/test_kernels.py's sweep shapes."""
+    import torch
+    from repro_torch.kernels import rglru_scan
+    from repro_torch.kernels.ref import rglru_scan_ref
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    shapes = [(B, S, 2560) for B in (1, 8) for S in (1, 17, 1000, 2600)]
+    shapes += [(2, 512, 256), (1, 1024, 128), (3, 256, 384), (1, 64, 128)]
+    for B, S, d in shapes:
+        a = (0.7 + 0.299 * torch.rand((B, S, d), generator=gen,
+                                      device="cuda")).to(dtype)
+        b = (0.1 * torch.randn((B, S, d), generator=gen,
+                               device="cuda")).to(dtype)
+        h0 = torch.randn((B, d), generator=gen, device="cuda")
+        out = rglru_scan(a, b, h0)
+        ref = rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        errs.check("rglru_scan", dtype_name, out, ref,
+                   f"rglru_scan {dtype_name} B={B} S={S} d={d}",
+                   tol=SCAN_TOL[dtype_name])
 
 
 def time_paged_step():
-    """Kernel, plain and bound at a decode tick of the serving phase's
-    shape: 8 slots mid-generation, bf16.  Eight copies of the pools are
-    cycled so each launch finds its K/V outside the 50 MB L2, as the
-    36-layer step does."""
+    """Kernel, plain and bound at a decode tick of the qwen2.5-3b serving
+    phase's shape: 8 slots mid-generation, bf16; and (``"dh256"``) at
+    recurrentgemma-2b's paged shape."""
+    out = _time_paged_step(16, 2, 128, 128, None, (64, 1152), seed=3)
+    out["dh256"] = _time_paged_step(10, 1, 256, 192, 2048, (64, 3000),
+                                    seed=19)
+    return out
+
+
+def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
+    """One (B=8, ps=16, bf16) decode step; eight copies of the pools are
+    cycled so each launch finds its K/V outside the 50 MB L2, as a
+    many-layer step does.  The bound counts the stored rows the window
+    admits, the new token's rows and the small operands."""
     import torch
     from repro_torch.kernels import paged_decode_step
     from repro_torch.kernels.ref import paged_decode_step_ref
-    B, H, KVH, dh, ps, MP = 8, 16, 2, 128, 16, 128
+    B, ps = 8, 16
     g = H // KVH
-    lens = torch.randint(64, 1152, (B,),
-                         generator=torch.Generator().manual_seed(3))
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    lens = torch.randint(*lens_range, (B,),
+                         generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, torch.bfloat16)
     pools = [(x["k"].clone(), x["v"].clone()) for _ in range(8)]
     it = {"i": 0}
@@ -196,12 +357,16 @@ def time_paged_step():
         def call():
             k, v = pools[it["i"] % len(pools)]
             it["i"] += 1
-            fn(x["q"], x["kn"], x["vn"], k, v, x["table"], x["lens"])
+            fn(x["q"], x["kn"], x["vn"], k, v, x["table"], x["lens"],
+               window=window)
         return call
     ms = time_ms(run(paged_decode_step))
     plain = time_ms(run(paged_decode_step_ref), iters=10)
     esz = 2
-    stored = (lens - 1).clamp(min=0).sum().item()
+    stored = (lens - 1).clamp(min=0)
+    if window is not None:                   # rows the window admits
+        stored = stored.clamp(max=window - 1)
+    stored = stored.sum().item()
     n_bytes = (2 * stored * KVH * dh * esz           # K and V rows read
                + 2 * B * H * dh * esz                 # q in, out
                + 4 * B * KVH * dh * esz               # new K/V in, rows out
@@ -210,8 +375,10 @@ def time_paged_step():
     b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
     return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None,
-            "shape": f"B=8 H=16 KVH=2 dh=128 ps=16 MP=128 bf16 lens="
-                     f"{lens.tolist()}"}
+            "shape": f"B=8 H={H} KVH={KVH} dh={dh} ps=16 MP={MP} window="
+                     f"{window} bf16 lens={lens.tolist()} (library: none, "
+                     f"no single PyTorch call appends into and attends over "
+                     f"a paged pool)"}
 
 
 def time_flash():
@@ -236,13 +403,173 @@ def time_flash():
     flops = 4 * pairs * dh * H * B
     n_bytes = 2 * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
     b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
+    out = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lib,
+           "shape": "B=1 H=16 KVH=2 S=1024 dh=128 causal bf16 "
+                    "(library: SDPA, GQA heads expanded outside the timing)"}
+    out["dh256"] = time_flash_dh256()
+    return out
+
+
+def time_flash_dh256():
+    """recurrentgemma-2b's prefill attention: S=2048 (= its window, so
+    causal), H=10, KVH=1, dh=256, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, H, KVH, S, dh = 1, 10, 1, 2048, 256
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    f = lambda h: torch.randn((B, h, S, dh), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+    q, k, v = f(H), f(KVH), f(KVH)
+    ms = time_ms(lambda: flash_attention(q, k, v, window=2048), iters=10)
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, window=2048),
+                    iters=5)
+    kr, vr = k.expand(B, H, S, dh).contiguous(), v.expand(B, H, S,
+                                                          dh).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                         is_causal=True))
+    flops = 4 * (S * (S + 1) // 2) * dh * H * B
+    n_bytes = 2 * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
+    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
     return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
             "library_ms": lib,
-            "shape": "B=1 H=16 KVH=2 S=1024 dh=128 causal bf16 "
-                     "(library: SDPA, GQA heads expanded outside the timing)"}
+            "shape": "B=1 H=10 KVH=1 S=2048 dh=256 causal window 2048 bf16 "
+                     "(library: SDPA, KV head expanded outside the timing)"}
+
+
+def time_paged_attention():
+    """The read-only walk at the decode step's timed shape (8 slots,
+    16/2 heads, dh 128, bf16), eight pool copies cycled past the L2."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    B, H, KVH, dh, ps, MP = 8, 16, 2, 128, 16, 128
+    g = H // KVH
+    lens = torch.randint(64, 1152, (B,),
+                         generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, torch.bfloat16)
+    pools = [(x["k"].clone(), x["v"].clone()) for _ in range(8)]
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            k, v = pools[it["i"] % len(pools)]
+            it["i"] += 1
+            fn(x["q"], k, v, x["table"], x["lens"])
+        return call
+    ms = time_ms(run(paged_decode_attention))
+    plain = time_ms(run(paged_decode_attention_ref), iters=10)
+    n = lens.sum().item()
+    n_bytes = (2 * n * KVH * dh * 2 + 2 * B * H * dh * 2
+               + sum(-(-int(m) // ps) for m in lens) * 4 + B * 4)
+    b_ms, by = bound_ms(n_bytes, 4 * n * KVH * g * dh, "bfloat16")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
+            "shape": f"B=8 H=16 KVH=2 dh=128 ps=16 MP=128 bf16 lens="
+                     f"{lens.tolist()} (library: none, no single PyTorch "
+                     f"call attends over a paged pool)"}
+
+
+def time_decode():
+    """A ring-decode step of recurrentgemma-2b's striped serving shape:
+    8 slots with full wrapped rings of W = window = 2048, 10/1 heads,
+    dh 256, bf16; eight K/V copies cycled past the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+    B, H, KVH, W, dh = 8, 10, 1, 2048, 256
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    fills = [W + 37 * b for b in range(B)]
+    q, k, v, spos, pos = _ring_inputs(gen, B, H, KVH, W, dh, fills,
+                                      torch.bfloat16)
+    rings = [(k.clone(), v.clone()) for _ in range(8)]
+    it = {"i": 0}
+
+    def run(fn):
+        def call():
+            kk, vv = rings[it["i"] % len(rings)]
+            it["i"] += 1
+            fn(q, kk, vv, spos, pos, window=W)
+        return call
+    ms = time_ms(run(decode_attention))
+    plain = time_ms(run(decode_attention_ref), iters=10)
+    # library yardstick: SDPA over the validity mask, KV head expanded
+    # outside the timing (84 MB each, past the L2 without cycling)
+    sp, p2 = spos.long(), pos.long()[:, None]
+    mask = ((sp >= 0) & (sp <= p2) & (p2 - sp < W))[:, None, None, :]
+    kx = k.permute(0, 2, 1, 3).expand(B, H, W, dh).contiguous()
+    vx = v.permute(0, 2, 1, 3).expand(B, H, W, dh).contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kx, vx, attn_mask=mask))
+    n_valid = int(mask.sum().item())
+    n_bytes = (2 * n_valid * KVH * dh * 2 + 2 * B * H * dh * 2
+               + B * W * 4 + B * 4)
+    b_ms, by = bound_ms(n_bytes, 4 * n_valid * H * dh, "bfloat16")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib,
+            "shape": "B=8 H=10 KVH=1 W=2048 window 2048 dh=256 bf16, full "
+                     "wrapped rings (library: SDPA with the boolean "
+                     "validity mask, KV head expanded outside the timing)"}
+
+
+def time_scan():
+    """One RG-LRU layer's prefill scan of a 2048-token prompt at d 2560;
+    a and b are fp32 on the model's path (the gates run in fp32)."""
+    import torch
+    from repro_torch.kernels import rglru_scan
+    from repro_torch.kernels.ref import rglru_scan_ref
+    B, S, d = 1, 2048, 2560
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    a = 0.7 + 0.299 * torch.rand((B, S, d), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((B, S, d), generator=gen, device="cuda")
+    h0 = torch.randn((B, d), generator=gen, device="cuda")
+    ms = time_ms(lambda: rglru_scan(a, b, h0))
+    plain = time_ms(lambda: rglru_scan_ref(a, b, h0), iters=3, warmup=1)
+    n_bytes = 3 * B * S * d * 4 + B * d * 4
+    b_ms, by = bound_ms(n_bytes, 2 * B * S * d, "float32")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
+            "shape": "B=1 S=2048 d=2560 fp32 (library: none, no single "
+                     "PyTorch call computes a linear recurrence)"}
 
 
 # ------------------------------------------------------------ phase 3
+def drive(path: str, fn):
+    """Run one serving path with every launch count set to 0 just before
+    it and read just after; returns (fn's result, wall seconds, counts)."""
+    import torch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in KERNELS}
+    PATH_LAUNCHES[path] = counts
+    return out, wall, counts
+
+
+def expect(path: str, counts, want) -> None:
+    """Every kernel's launches on the path equal ``want`` (absent: 0)."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{path}: {name} launched {n} times, want "
+                                 f"{want.get(name, 0)} (all: {counts})")
+
+
+def check_lengths(path, out, trace, vocab):
+    for i, (_, n) in enumerate(trace):
+        toks = out[i]
+        if len(toks) != n or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{path} request {i}: {len(toks)} tokens, "
+                                 f"want {n}")
+
+
 def serving_trace(vocab: int, seed: int):
     """14 requests, prompts 64..1024 tokens, 32..128 new tokens.  Requests
     1 and 2 share request 0's prompt prefix: 600 tokens (a mid-page match,
@@ -260,8 +587,6 @@ def serving_trace(vocab: int, seed: int):
 def serve_full_width(seed: int):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (flash_attention, paged_decode_step,
-                                     reset_launch_counts)
     from repro_torch.models import init_params
     from repro_torch.serving import ContinuousBatchingEngine
     cfg = get_config("qwen2.5-3b")
@@ -273,27 +598,14 @@ def serve_full_width(seed: int):
     trace = serving_trace(cfg.vocab_size, seed)
     for i, (p, n) in enumerate(trace):
         eng.submit(p, n, req_id=i)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_decode_step": paged_decode_step.launches,
-                "flash_attention": flash_attention.launches}
+    out, wall, launches = drive("qwen2.5-3b paged", eng.run)
     s = eng.stats
     seqs = eng.sched.finished
     fresh = sum(1 for q in seqs.values() if q.shared_tokens == 0)
-    for i, (_, n) in enumerate(trace):
-        toks = out[i]
-        if len(toks) != n or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {i}: {len(toks)} tokens, want {n}")
-    if launches["paged_decode_step"] != N_LAYERS * s["decode_ticks"]:
-        raise AssertionError(f"decode-step launches {launches} vs "
-                             f"{s['decode_ticks']} ticks")
-    if launches["flash_attention"] != N_LAYERS * fresh:
-        raise AssertionError(f"flash launches {launches} vs {fresh} fresh "
-                             f"prefills")
+    check_lengths("qwen2.5-3b paged", out, trace, cfg.vocab_size)
+    expect("qwen2.5-3b paged", launches,
+           {"paged_decode_step": N_LAYERS * s["decode_ticks"],
+            "flash_attention": N_LAYERS * fresh})
     if s["shared_tokens"] <= 0 or fresh == len(trace):
         raise AssertionError("no prompt shared a prefix: the CoW fork and "
                              "suffix prefill did not run")
@@ -305,13 +617,56 @@ def serve_full_width(seed: int):
         f"{s['decode_tokens']} ({s['decode_tokens'] / wall:.1f} decode "
         f"tok/s over the wall time); prefills={s['prefills']} fresh={fresh} "
         f"shared_tokens={s['shared_tokens']}")
-    profile_ticks(eng, cfg.vocab_size, seed)
-    del eng, params
+    profile_ticks(eng, cfg.vocab_size, seed, "qwen2.5-3b paged")
+    del eng
     torch.cuda.empty_cache()
-    return launches
+    serve_striped_dense(cfg, params, seed)
+    del params
+    torch.cuda.empty_cache()
 
 
-def profile_ticks(eng, vocab: int, seed: int) -> None:
+def serve_striped_dense(cfg, params, seed: int) -> None:
+    """qwen2.5-3b through the striped ring layout: ``InferenceEngine`` (4
+    prompts of 512 tokens, 32 new) and ``paged=False`` (6 requests), so
+    the ring decode kernel is held at the dense shape on a serving path."""
+    import numpy as np
+    import torch
+    from repro_torch.models import make_batch
+    from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
+    eng = InferenceEngine(cfg, params)
+    batch = make_batch(cfg, 4, 512, seed=seed + 3, device="cuda")
+    out, wall, counts = drive("qwen2.5-3b static",
+                              lambda: eng.generate(batch, 32))
+    if out.shape != (4, 32) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"static engine output {tuple(out.shape)}")
+    expect("qwen2.5-3b static", counts,
+           {"flash_attention": N_LAYERS,
+            "decode_attention": N_LAYERS * 31})
+    log(f"[serve] qwen2.5-3b InferenceEngine: 4 x (512 prompt, 32 new) = "
+        f"128 tokens in {wall:.3f} s = {128 / wall:.1f} tok/s")
+    rng = np.random.default_rng(seed + 4)
+    trace = [(list(map(int, rng.integers(0, cfg.vocab_size, int(n)))),
+              int(m)) for n, m in zip(rng.integers(64, 1025, 6),
+                                      rng.integers(16, 49, 6))]
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=2048,
+                                   paged=False)
+    for i, (p, n) in enumerate(trace):
+        eng.submit(p, n, req_id=i)
+    out, wall, counts = drive("qwen2.5-3b striped", eng.run)
+    s = eng.stats
+    check_lengths("qwen2.5-3b striped", out, trace, cfg.vocab_size)
+    expect("qwen2.5-3b striped", counts,
+           {"flash_attention": N_LAYERS * s["prefills"],
+            "decode_attention": N_LAYERS * s["decode_ticks"]})
+    gen_tok = sum(len(v) for v in out.values())
+    log(f"[serve] qwen2.5-3b striped (paged=False): {len(trace)} requests, "
+        f"{gen_tok} tokens in {wall:.3f} s = {gen_tok / wall:.1f} tok/s; "
+        f"decode_ticks={s['decode_ticks']} prefills={s['prefills']}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def profile_ticks(eng, vocab: int, seed: int, label: str) -> None:
     """Where a serving tick's time goes: a short burst (8 requests, 256
     prompt tokens, 24 new) under torch.profiler after the measured run;
     prints device-busy share of the wall time and the top kernels."""
@@ -339,11 +694,12 @@ def profile_ticks(eng, vocab: int, seed: int) -> None:
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and dev(e) > 0]
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"[profile] 8 requests x (256 prompt, 24 new): {ticks} decode "
+    log(f"[profile] {label} 8 requests x (256 prompt, 24 new): {ticks} decode "
         f"ticks, wall {wall:.4f} s, device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for t, key, count in sorted(rows, reverse=True)[:10]:
-        log(f"[profile]   {t / 1e3:10.3f} ms  {count:6d}x  {key[:90]}")
+        log(f"[profile] {label}  {t / 1e3:10.3f} ms  {count:6d}x  "
+            f"{key[:90]}")
 
 
 def _leaves(tree):
@@ -358,13 +714,59 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------ phase 4
+def teacher_forced(cfg, params, prompt, gen, what: str, layout: str):
+    """Re-run one request teacher-forced through ``forward`` +
+    ``decode_step`` with every kernel swapped for its plain version
+    (``kernel_impl="plain"``: attention and the RG-LRU scan), on the paged
+    or the striped cache; every engine token must equal the reference
+    argmax where the top-2 margin exceeds MARGIN.  Returns (checked,
+    skipped)."""
+    import torch
+    from repro_torch.models import (cache_from_prefill, decode_step,
+                                    forward, init_paged_cache,
+                                    paged_prefill_scatter, pages_for)
+    total = len(prompt) + len(gen)
+    toks = torch.tensor([prompt], device="cuda")
+    o = forward(cfg, params, {"tokens": toks}, build_cache=True,
+                kernel_impl="plain", last_only=True)
+    if layout == "paged":
+        npg = pages_for(total, 16)
+        cache = init_paged_cache(cfg, 1, page_size=16, n_pages=npg,
+                                 max_pages=npg, device="cuda")
+        cache["pages"] = torch.arange(npg, dtype=torch.int32,
+                                      device="cuda")[None]
+        paged_prefill_scatter(cfg, cache, o["kv"], 0, cache["pages"][0])
+    else:
+        cache = cache_from_prefill(cfg, o["kv"], total)
+    logits = o["logits"][0, -1]
+    checked = skipped = 0
+    for j, got in enumerate(gen):
+        if j:
+            logits, cache = decode_step(
+                cfg, params, cache, torch.tensor([gen[j - 1]], device="cuda"),
+                cache["pos"], kernel_impl="plain")
+            logits = logits[0]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{what} token {j}: non-finite reference "
+                                 f"logits")
+        top2 = torch.topk(logits.float(), 2)
+        margin = (top2.values[0] - top2.values[1]).item()
+        if margin <= MARGIN:
+            skipped += 1
+            continue
+        checked += 1
+        if int(top2.indices[0]) != got:
+            raise AssertionError(
+                f"{what} token {j}: engine {got} vs reference "
+                f"{int(top2.indices[0])} (margin {margin:.3g})")
+    return checked, skipped
+
+
 def check_fp32(seed: int):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import (decode_step, forward, init_paged_cache,
-                                    init_params, paged_prefill_scatter,
-                                    pages_for)
+    from repro_torch.models import init_params
     from repro_torch.serving import ContinuousBatchingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -381,38 +783,9 @@ def check_fp32(seed: int):
     out = eng.run()
     checked = skipped = 0
     for i, (prompt, _) in enumerate(trace):
-        gen = out[i]
-        total = len(prompt) + len(gen)
-        npg = pages_for(total, 16)
-        cache = init_paged_cache(cfg, 1, page_size=16, n_pages=npg,
-                                 max_pages=npg, device="cuda")
-        cache["pages"] = torch.arange(npg, dtype=torch.int32,
-                                      device="cuda")[None]
-        toks = torch.tensor([prompt], device="cuda")
-        o = forward(cfg, params, {"tokens": toks}, build_cache=True,
-                    attn_impl="plain")
-        paged_prefill_scatter(cfg, cache, o["kv"], 0, cache["pages"][0])
-        logits = o["logits"][0, -1]
-        for j, got in enumerate(gen):
-            if j:
-                logits, cache = decode_step(
-                    cfg, params, cache,
-                    torch.tensor([gen[j - 1]], device="cuda"), cache["pos"],
-                    attn_impl="plain")
-                logits = logits[0]
-            if not torch.isfinite(logits).all():
-                raise AssertionError(f"request {i} token {j}: non-finite "
-                                     f"reference logits")
-            top2 = torch.topk(logits, 2)
-            margin = (top2.values[0] - top2.values[1]).item()
-            if margin <= MARGIN:
-                skipped += 1
-                continue
-            checked += 1
-            if int(top2.indices[0]) != got:
-                raise AssertionError(
-                    f"request {i} token {j}: engine {got} vs reference "
-                    f"{int(top2.indices[0])} (margin {margin:.3g})")
+        c, k = teacher_forced(cfg, params, prompt, out[i],
+                              f"qwen2.5-3b request {i}", "paged")
+        checked, skipped = checked + c, skipped + k
     if checked < (checked + skipped) // 2:
         raise AssertionError(f"only {checked} tokens cleared the margin")
     log(f"[fp32] qwen2.5-3b full width fp32: {len(trace)} requests, "
@@ -420,6 +793,135 @@ def check_fp32(seed: int):
         f"{skipped} skipped (top-2 margin <= {MARGIN}); shared_tokens="
         f"{eng.stats['shared_tokens']}")
     del eng, params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 5
+def hybrid_trace(vocab: int, seed: int):
+    """12 requests, prompts 64..2600 tokens, 32..128 new.  The 2600-token
+    prompt is longer than the 2048 ring (the keep-last-W prefill), and
+    2000 + 100 and 1990 + 128 cross 2048 during decode (ring wrap)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 20)
+    lens_new = [(2600, 32), (2000, 100), (64, 128), (300, 64), (1024, 48),
+                (700, 96), (1500, 32), (128, 128), (900, 80), (1990, 128),
+                (400, 56), (64, 32)]
+    return [(list(map(int, rng.integers(0, vocab, n))), m)
+            for n, m in lens_new]
+
+
+def hybrid_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("recurrentgemma-2b")
+    mixers = [cfg.layer_pattern[i % cfg.pattern_len].split(":")[0]
+              for i in range(cfg.n_layers)]
+    assert (cfg.d_model, cfg.n_layers, cfg.window) == (2560, 26, 2048)
+    assert mixers.count("attn") == HYBRID_ATTN
+    assert mixers.count("rec") == HYBRID_REC
+    return cfg
+
+
+def serve_hybrid(seed: int) -> None:
+    """Full-width recurrentgemma-2b in bf16 on three paths in turn, with
+    every kernel's launches asserted per path."""
+    import torch
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
+    cfg = hybrid_config()
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] recurrentgemma-2b full width: {n_params / 1e9:.3f}B "
+        f"params, bf16")
+
+    eng = InferenceEngine(cfg, params)
+    batch = make_batch(cfg, 8, 1024, seed=seed + 21, device="cuda")
+    out, wall, counts = drive("recurrentgemma-2b static",
+                              lambda: eng.generate(batch, 64))
+    if out.shape != (8, 64) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"static engine output {tuple(out.shape)}")
+    expect("recurrentgemma-2b static", counts,
+           {"rglru_scan": HYBRID_REC, "flash_attention": HYBRID_ATTN,
+            "decode_attention": HYBRID_ATTN * 63})
+    log(f"[serve] recurrentgemma-2b InferenceEngine: 8 x (1024 prompt, 64 "
+        f"new) = 512 tokens in {wall:.3f} s = {512 / wall:.1f} tok/s "
+        f"(wall time incl. prefill); launches {counts}")
+    del eng, batch, out
+    torch.cuda.empty_cache()
+
+    trace = hybrid_trace(cfg.vocab_size, seed)
+    for paged in (False, True):
+        path = f"recurrentgemma-2b {'paged' if paged else 'striped'}"
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=3072,
+                                       page_size=16, paged=paged)
+        for i, (p, n) in enumerate(trace):
+            eng.submit(p, n, req_id=i)
+        out, wall, counts = drive(path, eng.run)
+        s = eng.stats
+        check_lengths(path, out, trace, cfg.vocab_size)
+        want = {"rglru_scan": HYBRID_REC * s["prefills"],
+                "flash_attention": HYBRID_ATTN * s["prefills"]}
+        want["paged_decode_step" if paged else "decode_attention"] = \
+            HYBRID_ATTN * s["decode_ticks"]
+        expect(path, counts, want)
+        if eng.prefix_sharing or s["prefills"] != len(trace):
+            raise AssertionError(f"{path}: prefix sharing on or a prompt "
+                                 f"not prefilled once ({s})")
+        gen_tok = sum(len(v) for v in out.values())
+        log(f"[serve] {path}: {len(trace)} requests, {gen_tok} tokens in "
+            f"{wall:.3f} s = {gen_tok / wall:.1f} tok/s (wall time incl. "
+            f"prefill); decode_ticks={s['decode_ticks']} decode_tokens="
+            f"{s['decode_tokens']} prefills={s['prefills']}; launches "
+            f"{counts}")
+        if paged:
+            profile_ticks(eng, cfg.vocab_size, seed, "recurrentgemma-2b paged")
+        del eng, out
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 6
+def check_hybrid_fp32(seed: int) -> None:
+    """recurrentgemma-2b in fp32 on the static, striped and paged paths:
+    three 300-token prompts (one static batch), and on the continuous
+    engines a 2100-token prompt past the window too; every token is held
+    to the plain teacher-forced argmax on the striped cache."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = hybrid_config()
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(seed + 22)
+    tok = lambda n: list(map(int, rng.integers(0, cfg.vocab_size, n)))
+    short = [tok(300) for _ in range(3)]
+    trace = [(p, 24) for p in short] + [(tok(2100), 24)]
+    gen = {"static": dict(enumerate(InferenceEngine(cfg, params).generate(
+        {"tokens": torch.tensor(short, device="cuda")}, 24).tolist()))}
+    for paged in (False, True):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=2200,
+                                       page_size=16, paged=paged)
+        for i, (p, n) in enumerate(trace):
+            eng.submit(p, n, req_id=i)
+        gen["paged" if paged else "striped"] = eng.run()
+        del eng
+    checked = skipped = 0
+    for path, outs in gen.items():
+        for i, toks in outs.items():
+            c, k = teacher_forced(cfg, params, trace[i][0], toks,
+                                  f"recurrentgemma-2b {path} request {i}",
+                                  "striped")
+            checked, skipped = checked + c, skipped + k
+    if checked < (checked + skipped) // 2:
+        raise AssertionError(f"only {checked} tokens cleared the margin")
+    log(f"[fp32] recurrentgemma-2b full width fp32: static (3 requests), "
+        f"striped and paged (4 requests each, one 2100-token prompt): "
+        f"{checked} engine tokens equal the plain teacher-forced argmax "
+        f"(plain attention and plain scan), {skipped} skipped (top-2 "
+        f"margin <= {MARGIN})")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -446,7 +948,8 @@ def main() -> int:
     log(f"[build] {_build.sources()} in {time.perf_counter() - t0:.2f} s")
     for name, text in sorted(_build.ptxas_log.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"[ptxas {name}] {line.strip()}")
 
     errs = ErrLog()
@@ -455,38 +958,76 @@ def main() -> int:
     for dt in ("float32", "bfloat16"):
         check_paged_step(errs, dt)
         check_flash(errs, dt)
+        check_paged_attention(errs, dt)
+        check_decode(errs, dt)
+        check_scan(errs, dt)
     log(f"[kernels] all cases within tolerance; max |kernel - plain|: "
         + ", ".join(f"{n} {d} {e:.3g}" for (n, d), e in errs.err.items()))
     timing = {"paged_decode_step": time_paged_step(),
-              "flash_attention": time_flash()}
+              "flash_attention": time_flash(),
+              "paged_decode_attention": time_paged_attention(),
+              "decode_attention": time_decode(),
+              "rglru_scan": time_scan()}
     for name, t in timing.items():
-        log(f"[time] {name}: kernel_ms={t['ms']:.4f} plain_ms="
-            f"{t['plain_ms']:.4f} library_ms={t['library_ms']} bound_ms="
-            f"{t['bound_ms']:.4f} ({t['bound_by']}) at {t['shape']}")
+        for tag, tt in ((name, t), (f"{name} dh256", t.get("dh256"))):
+            if tt:
+                log(f"[time] {tag}: kernel_ms={tt['ms']:.4f} plain_ms="
+                    f"{tt['plain_ms']:.4f} library_ms={tt['library_ms']} "
+                    f"bound_ms={tt['bound_ms']:.5f} ({tt['bound_by']}) at "
+                    f"{tt['shape']}")
 
-    launches = serve_full_width(args.seed)
+    t0 = time.perf_counter()
+    serve_full_width(args.seed)
+    log(f"[phase] 3 (qwen2.5-3b serving) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_fp32(args.seed)
+    log(f"[phase] 4 (qwen2.5-3b fp32) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_hybrid(args.seed)
+    log(f"[phase] 5 (recurrentgemma-2b serving) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_hybrid_fp32(args.seed)
+    log(f"[phase] 6 (recurrentgemma-2b fp32) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    meta = {"paged_decode_step": ("src/repro_torch/kernels/csrc/"
-                                  "paged_decode_step.cu",
+    csrc = "src/repro_torch/kernels/csrc/"
+    meta = {"paged_decode_step": (csrc + "paged_decode_step.cu",
                                   "src/repro/kernels/paged_attention.py:227"),
-            "flash_attention": ("src/repro_torch/kernels/csrc/"
-                                "flash_attention.cu",
-                                "src/repro/kernels/flash_attention.py:83")}
+            "flash_attention": (csrc + "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:83"),
+            "paged_decode_attention": (
+                csrc + "paged_decode_step.cu",
+                "src/repro/kernels/paged_attention.py:173"),
+            "decode_attention": (csrc + "decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:63"),
+            "rglru_scan": (csrc + "rglru_scan.cu",
+                           "src/repro/kernels/rglru_scan.py:42")}
+    # paged_decode_attention lies on no serving path in either package:
+    # only the phase 2 checks launch it, so its path count is 0
+    off_path = {"paged_decode_attention"}
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timing[name]
         e32 = errs.err[(name, "float32")]
         e16 = errs.err[(name, "bfloat16")]
-        kernels.append({
+        by_path = {p: c[name] for p, c in PATH_LAUNCHES.items() if c[name]}
+        launches = sum(by_path.values())
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "on_serving_path":
+                name not in off_path,
             "max_abs_err": max(e32, e16), "max_abs_err_fp32": e32,
             "max_abs_err_bf16": e16, "max_err": max(e32, e16),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"]})
-        if launches[name] <= 0 or not math.isfinite(t["ms"]):
+            "library_ms": t["library_ms"], "shape": t["shape"]}
+        if "dh256" in t:
+            entry["dh256"] = t["dh256"]
+        kernels.append(entry)
+        if not math.isfinite(t["ms"]) or (launches <= 0
+                                          and name not in off_path):
             raise AssertionError(f"{name} did not run on the main path")
     name = torch.cuda.get_device_name(0)
     log(smi())

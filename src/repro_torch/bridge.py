@@ -7,6 +7,9 @@ unrolled remainder layers.  The port keeps one dict per layer, so layer
 ``rep * pattern_len + pi`` is ``trunk[pi][...][rep]`` and the remainder
 layers follow.  The caller hands the parameters over as nested dicts and
 tuples of numpy arrays (``jax.device_get``); this module imports no JAX.
+Recurrent layers' ``rec`` dicts come over like the rest, except that the
+RG-LRU ``lam`` keeps its fp32 under any ``dtype``, as ``init_rec`` makes
+it in a bf16 model.
 """
 from __future__ import annotations
 
@@ -27,25 +30,33 @@ def _tensor(a, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _tree(x, fn):
+# leaves that keep their source dtype whatever ``dtype`` asks for
+_KEEP_DTYPE = ("lam",)
+
+
+def _tree(x, fn, key=None):
     if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
+        return {k: _tree(v, fn, k) for k, v in x.items()}
+    return fn(x, key)
 
 
 def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
                     dtype=None) -> Dict[str, Any]:
     """Port-layout parameters from numpy copies of the JAX package's
-    (dense family).  ``dtype`` casts every leaf; None keeps the source
-    dtype.  ``device`` defaults to the GPU."""
+    (dense and hybrid families).  ``dtype`` casts every leaf but ``lam``;
+    None keeps the source dtype.  ``device`` defaults to the GPU."""
     dev = resolve_device(device)
-    conv = lambda a: _tensor(a, dev, dtype)
+
+    def conv(a, key=None):
+        return _tensor(a, dev, None if key in _KEEP_DTYPE else dtype)
+
     reps, plen = cfg.n_pattern_reps, cfg.pattern_len
     layers = []
     for rep in range(reps):
         for pi in range(plen):
             layers.append(_tree(jax_params["trunk"][pi],
-                                lambda a, r=rep: conv(np.asarray(a)[r])))
+                                lambda a, key, r=rep: conv(np.asarray(a)[r],
+                                                           key)))
     layers += [_tree(lp, conv) for lp in jax_params["rem"]]
     out = {"embed": conv(jax_params["embed"]), "layers": layers,
            "final_norm": _tree(jax_params["final_norm"], conv)}

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``<repo>/build/repro_torch_kernels/`` — a path resolved from this file's
 location, not the working directory.  The library's file name carries a
-hash of its source and flags, so an edited source rebuilds at its next
-use and an unchanged one loads as built.  Nothing is built at import
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds at its next use and an unchanged one
+loads as built.  Nothing is built at import
 time: the first CUDA call of a kernel builds it, and ``build_all`` builds
 every source at once (one ``nvcc`` process each, started together).
 """
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
@@ -121,3 +124,14 @@ def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an address."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def n_split(name: str, pairs: int, n_tokens: int, device) -> int:
+    """How many CTAs share one (slot, KV head)'s walk in the read-only
+    decode kernels of ``csrc/<name>.cu``: chosen on the C side
+    (``split_count`` in ``decode_attend.cuh``) from the tile size and
+    ``device``'s SM count, for ``pairs`` walks of at most ``n_tokens``."""
+    fn = function(name, "decode_split_count", [ctypes.c_int] * 3)
+    n = fn(pairs, n_tokens, device.index)
+    check(max(-n, 0), f"{name} split count")
+    return n

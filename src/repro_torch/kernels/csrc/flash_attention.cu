@@ -4,7 +4,7 @@
 // Replaces the TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py, body `_kernel`).  Layouts are the JAX package's:
 //   q (B,H,S,dh); k/v (B,KVH,S,dh); out (B,H,S,dh); H % KVH == 0; dh a
-//   multiple of 8, at most 128.
+//   multiple of 8, at most 256.
 // Unlike the TPU kernel, S need not be a multiple of the tile: the ragged
 // tail is masked, since prefill runs prompts of any length.
 //
@@ -20,55 +20,24 @@
 // thread owns a 4×4 block of the score tile and a 4×(dh/16) block of the
 // output in registers, reads shared memory as float4 where the layout
 // allows, and keeps the online softmax in fp32.  The probabilities reuse
-// the K tile's shared memory, so two CTAs fit on an SM.  The KV range of
+// the K tile's shared memory, so two CTAs fit on an SM up to dh 128; at
+// dh 256 (RecurrentGemma) the three fp32 tiles take 4·(64·260 + 64·260 +
+// 64·256) = 198,656 bytes and one CTA fits.  The KV range of
 // each query tile is bounded to the blocks its causal/window mask can
 // reach (first_blk..last_blk, as the TPU kernel bounds its grid), and
 // masked scores are skipped rather than multiplied by zero.  Query tiles
 // are issued longest-first so the causal triangle's heavy tiles start
 // early.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;
 constexpr int kPd = kBK + 4;        // probability row stride (float4-aligned)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// a 16-byte vector of T as floats: 4 for float, 8 for bf16
-__device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* f,
-                                       __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
 
 // reduce over the 16 lanes that share one thread row (tx = lane & 15)
 __device__ __forceinline__ float row_max(float v) {
@@ -120,9 +89,12 @@ __device__ __forceinline__ int col(int c, int tx) {
 
 // NC = output column chunks of 16 per thread row (dh <= 16*NC).  VEC4:
 // dh == 16*NC with NC a multiple of 4, so a thread owns runs of 4
-// adjacent columns (tx*4 + 64*h ..) and reads V as float4.
+// adjacent columns (tx*4 + 64*h ..) and reads V as float4.  Up to NC = 8
+// two CTAs share an SM (at most 128 registers a thread); at NC = 16 the
+// shared memory admits one, so a thread may take 255 registers for its 64
+// accumulators rather than spill them.
 template <typename T, int NC, bool VEC4>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, NC > 8 ? 1 : 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
                        int KVH, int S, int dh, int causal, int window,
@@ -299,6 +271,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KVH, int S, int dh, int causal, int window, float scale,
            cudaStream_t stream) {
   if (dh % 8 || dh > kMaxDh) return (int)cudaErrorInvalidValue;
+  if (dh == 256)
+    return launch_nc<T, 16, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
   if (dh == 128)
     return launch_nc<T, 8, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
   if (dh == 64)
@@ -309,7 +283,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     return launch_nc<T, 2, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
   if (dh <= 64)
     return launch_nc<T, 4, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  return launch_nc<T, 8, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  if (dh <= 128)
+    return launch_nc<T, 8, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  return launch_nc<T, 16, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
 }
 
 }  // namespace

@@ -4,7 +4,7 @@
 The port of the TPU kernel ``repro.kernels.flash_attention.
 flash_attention``, with the same layouts: q (B,H,S,dh); k/v (B,KVH,S,dh);
 out (B,H,S,dh).  Unlike the TPU kernel, any S is taken (the kernel masks
-the ragged tail); dh is a multiple of 8 up to 128.
+the ragged tail); dh is a multiple of 8 up to 256.
 
 A CPU tensor runs the plain version (``ref.flash_attention_ref``); a CUDA
 tensor launches the kernel or raises.
@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 

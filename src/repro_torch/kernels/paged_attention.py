@@ -1,14 +1,18 @@
-"""Fused paged decode step: append the new token's K/V and attend over the
-slot's pages in one launch (CUDA C++ kernel ``csrc/paged_decode_step.cu``).
+"""Paged decode attention (CUDA C++ kernels ``csrc/paged_decode_step.cu``):
+the fused decode step, which appends the new token's K/V and attends over
+the slot's pages in one launch, and its read-only form.
 
-The port of the TPU kernel ``repro.kernels.paged_attention.
-paged_decode_step``, with the same layouts: q (B,H,dh); k_new/v_new
-(B,KVH,dh); k/v pools (P,ps,KVH,dh) whose last page P-1 is the trash
-page; page_table (B,MP) int32 (-1 = unallocated); lens (B,) int32 token
-counts INCLUDING the new token.  The pools are updated in place.
+The ports of the TPU kernels ``repro.kernels.paged_attention.
+paged_decode_step`` and ``paged_decode_attention``, with the same layouts:
+q (B,H,dh); k_new/v_new (B,KVH,dh); k/v pools (P,ps,KVH,dh) whose last
+page P-1 is the trash page; page_table (B,MP) int32 (-1 = unallocated);
+lens (B,) int32, for the step token counts INCLUDING the new token, for
+the read-only form live token counts.  The step updates the pools in
+place.
 
-A CPU tensor runs the plain version (``ref.paged_decode_step_ref``); a
-CUDA tensor launches the kernel or raises.
+A CPU tensor runs the plain version (``ref.paged_decode_step_ref``,
+``ref.paged_decode_attention_ref``); a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -18,11 +22,14 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_decode_step_ref
+from repro_torch.kernels.ref import (paged_decode_attention_ref,
+                                     paged_decode_step_ref)
 
 MAX_HEAD_DIM = 256
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ATTN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
@@ -78,3 +85,61 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
 
 
 paged_decode_step.launches = 0
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lens, *,
+                           window=None):
+    """Read-only paged attention over each slot's ``lens`` live tokens ->
+    (B,H,dh); the window is measured from position lens-1.  A row with
+    lens == 0 is the uniform mean of V over all MP·ps table entries, as
+    the TPU kernel and the plain version give.
+    ``paged_decode_attention.launches`` counts the kernel launches (CPU
+    calls are not counted)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                          lens, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    B, H, dh = q.shape
+    P, ps, KVH, dh_p = k_pages.shape
+    MP = page_table.shape[-1]
+    if (dh_p != dh or H % KVH or v_pages.shape != k_pages.shape
+            or page_table.shape != (B, MP) or lens.shape != (B,)):
+        raise ValueError(
+            f"paged_decode_attention shapes: q {tuple(q.shape)}, pools "
+            f"{tuple(k_pages.shape)}, table {tuple(page_table.shape)}, "
+            f"lens {tuple(lens.shape)}")
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"the paged kernel takes dh a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, not {dh}")
+    if q.dtype != k_pages.dtype or v_pages.dtype != k_pages.dtype:
+        raise TypeError("q and both pools must share one dtype")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if any(t.device != q.device for t in (k_pages, v_pages, page_table,
+                                          lens)):
+        raise ValueError("paged_decode_attention operands must share one "
+                         "device")
+    code = _build.dtype_code(q.dtype)
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    table = page_table.to(torch.int32).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    splits = _build.n_split("paged_decode_step", B * KVH, MP * ps,
+                             q.device)
+    part = torch.empty((B * KVH * splits * (H // KVH) * (dh + 2),),
+                       dtype=torch.float32, device=q.device)
+    fn = _build.function("paged_decode_step", "paged_decode_attention_launch",
+                         _ATTN_ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+             part.data_ptr(), B, H, KVH, dh, P, ps, MP, window or 0, splits,
+             1.0 / math.sqrt(dh), code, _build.stream_of(q))
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

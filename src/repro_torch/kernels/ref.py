@@ -76,3 +76,70 @@ def paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages, page_table,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkd->bkgd", w, v.float())
     return o.reshape(B, H, dh).to(q.dtype), k_pages, v_pages
+
+
+def decode_attention_ref(q, k, v, spos, pos, *, window=None):
+    """Single-token decode against a (ring) KV cache.
+
+    q: (B,H,dh); k/v: (B,W,KVH,dh); spos: (B,W) stored positions (-1
+    empty); pos: (B,) current positions.  Returns (B,H,dh).  A row with no
+    valid slot softmaxes over all-masked scores: the uniform mean of V."""
+    B, H, dh = q.shape
+    KVH = k.shape[2]
+    g = H // KVH
+    qg = q.reshape(B, KVH, g, dh).float() / math.sqrt(dh)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k.float())
+    pos2 = pos.long()[:, None]
+    spos = spos.long()
+    valid = (spos >= 0) & (spos <= pos2)
+    if window is not None:
+        valid &= pos2 - spos < window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkd->bkgd", w, v.float())
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lens, *,
+                               window=None):
+    """Single-token decode against a paged KV pool, read-only.
+
+    q: (B,H,dh); k/v_pages: (P,ps,KVH,dh) with the last page reserved as
+    trash; page_table: (B,MP) int32 page ids (-1 = unallocated); lens:
+    (B,) live token counts.  Returns (B,H,dh).  A row with no valid token
+    (lens == 0) is the uniform mean of V over all MP·ps table entries,
+    unallocated ones read from the trash page."""
+    B, H, dh = q.shape
+    P, ps, KVH, _ = k_pages.shape
+    g = H // KVH
+    MP = page_table.shape[1]
+    table = page_table.long()
+    pt = torch.where(table >= 0, table, P - 1)
+    k = k_pages[pt].reshape(B, MP * ps, KVH, dh)
+    v = v_pages[pt].reshape(B, MP * ps, KVH, dh)
+    t = torch.arange(MP * ps, device=q.device)[None]
+    n = lens.long()[:, None]
+    valid = (t < n) & (torch.repeat_interleave(table, ps, dim=1) >= 0)
+    if window is not None:
+        valid &= (n - 1) - t < window
+    qg = q.reshape(B, KVH, g, dh).float() / math.sqrt(dh)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k.float())
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkd->bkgd", w, v.float())
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+def rglru_scan_ref(a, b, h0):
+    """Linear recurrence h_t = a_t * h_{t-1} + b_t: a, b (B,S,d), h0 (B,d)
+    -> h (B,S,d) in a's dtype.  A sequential loop over t with an fp32
+    carry, as the kernel computes it (the JAX oracle uses a log-depth
+    associative scan; the two agree to fp32 rounding)."""
+    B, S, d = a.shape
+    h = torch.empty((B, S, d), dtype=a.dtype, device=a.device)
+    carry = h0.float()
+    af, bf = a.float(), b.float()
+    for t in range(S):
+        carry = af[:, t] * carry + bf[:, t]
+        h[:, t] = carry.to(a.dtype)
+    return h

@@ -1,8 +1,10 @@
 from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, PageTable,
-                                          PrefixIndex, paged_geometry,
+                                          PrefixIndex, cache_gather,
+                                          cache_scatter, paged_geometry,
                                           pages_for)
-from repro_torch.models.model import (decode_step, forward,
-                                      init_paged_cache, init_params,
+from repro_torch.models.model import (cache_from_prefill, decode_step,
+                                      forward, init_cache, init_paged_cache,
+                                      init_params, make_batch,
                                       paged_copy_page, paged_prefill_scatter,
                                       paged_suffix_prefill,
                                       supports_prefix_sharing)
@@ -11,4 +13,5 @@ __all__ = ["init_params", "forward", "decode_step", "PageTable",
            "pages_for", "init_paged_cache", "paged_prefill_scatter",
            "DEFAULT_PAGE_SIZE", "paged_geometry", "PrefixIndex",
            "paged_suffix_prefill", "paged_copy_page",
-           "supports_prefix_sharing"]
+           "supports_prefix_sharing", "init_cache", "cache_from_prefill",
+           "cache_scatter", "cache_gather", "make_batch"]

@@ -1,6 +1,8 @@
-"""Paged KV allocation: the page pool's host-side bookkeeping.
+"""Paged KV allocation (the page pool's host-side bookkeeping) and the
+striped pool's slot copies.
 
-The PyTorch counterpart of the paged half of ``repro.models.cache_ops``.
+The PyTorch counterpart of ``repro.models.cache_ops`` (its ``PackedKV``
+handoff wire and the ``batch_axes`` detection are not ported).
 Attention K/V live in a shared pool of fixed-size token pages allocated
 on demand, so resident KV bytes scale with live tokens instead of
 ``slots × max_len``.  ``PageTable`` is the block allocator — host-side free
@@ -534,3 +536,31 @@ class PrefixIndex:
         """Drop every entry (engine teardown / leak checks)."""
         while self._nodes:
             self.evict(pt, pt.n_pages)
+
+
+# ========================================================= striped slot ops
+def _leaf_map(fn, *trees):
+    """Apply ``fn`` to matching tensor leaves of nested dicts and lists."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: _leaf_map(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, (list, tuple)):
+        return type(head)(_leaf_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def cache_scatter(pool_cache, seq_cache, slot: int):
+    """Write a batch-1 striped cache into row ``slot`` of the pooled one,
+    in place; returns the pool.  Every striped leaf keeps the slot on
+    axis 0 (``models.model.init_cache``), so the JAX package's per-leaf
+    batch-axis detection (``batch_axes``) is not needed; every leaf is
+    overwritten, recurrent state included."""
+    def scatter(pool, seq):
+        pool[slot] = seq[0].to(pool.dtype)
+        return pool
+    return _leaf_map(scatter, pool_cache, seq_cache)
+
+
+def cache_gather(pool_cache, slot: int):
+    """Row ``slot`` of a pooled striped cache as a batch-1 cache (copies)."""
+    return _leaf_map(lambda pool: pool[slot:slot + 1].clone(), pool_cache)

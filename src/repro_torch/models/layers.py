@@ -1,13 +1,21 @@
-"""Shared layers of the dense decoder: norms, RoPE, attention (flash
-prefill, fused paged decode, paged suffix prefill) and the FFNs.
+"""Shared layers of the decoder: norms, RoPE, attention (flash prefill,
+striped ring decode, fused paged decode, paged suffix prefill), the
+striped KV caches and the FFNs.
 
 The PyTorch counterpart of ``repro.models.layers``.  Parameters are plain
 dicts of tensors; functions take and return tensors in the JAX package's
-layouts.  ``attn_impl="kernel"`` (the default) sends causal prefill
-attention to the flash kernel and the decode step to the fused paged
-kernel; ``attn_impl="plain"`` computes the same attention with plain
-tensor ops (masked softmax over gathered pages), used as an independent
-check of the kernel path.  Plain matrix products stay ``torch.matmul``.
+layouts.  Plain matrix products stay ``torch.matmul``.
+
+``kernel_impl`` is the port's one switch between every hand-written
+kernel and its plain version, taken by the functions here, by
+``recurrent.apply_rec``, by ``model.forward``/``decode_step`` and by the
+engines.  ``"kernel"`` (the default) sends causal prefill attention to the
+flash kernel, the striped decode to the ring decode kernel, the paged
+decode to the fused paged kernel and the RG-LRU prefill to the scan
+kernel (each of which takes its plain version on a CPU tensor);
+``"plain"`` computes the same with plain tensor ops whatever the device
+(masked softmax over the ring or the gathered pages, the sequential
+scan), used as an independent check of the kernel path.
 """
 from __future__ import annotations
 
@@ -18,16 +26,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention, paged_decode_step
+from repro_torch.kernels import decode_attention as decode_attention_kernel
 
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
-ATTN_IMPLS = ("kernel", "plain")
+KERNEL_IMPLS = ("kernel", "plain")
 
 
 def _check_impl(impl: str) -> None:
-    if impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not "
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}, not "
                          f"{impl!r}")
 
 
@@ -144,15 +153,16 @@ def _sdpa(q, k, v, mask, cfg):
 
 
 def full_attention(p, x, cfg, positions, *, rope=True,
-                   window: Optional[int] = None, attn_impl: str = "kernel"):
+                   window: Optional[int] = None,
+                   kernel_impl: str = "kernel"):
     """Causal self-attention over a whole sequence whose positions are
-    0..S-1 (prompt prefill).  ``attn_impl="kernel"`` runs the flash
-    kernel.  Returns (out, (k, v)) with k/v (B,S,kv,dh) for the cache.
+    0..S-1 (prompt prefill), through the flash kernel.  Returns
+    (out, (k, v)) with k/v (B,S,kv,dh) for the cache.
     The JAX package's non-causal and ``kv_override`` paths serve the
     encoder-decoder family only and are not ported."""
-    _check_impl(attn_impl)
+    _check_impl(kernel_impl)
     q, k, v = _qkv(p, x, cfg, positions, rope)
-    if attn_impl == "kernel":
+    if kernel_impl == "kernel":
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True, window=window)
         o = o.transpose(1, 2)
@@ -164,23 +174,96 @@ def full_attention(p, x, cfg, positions, *, rope=True,
     return _out_proj(p, o, cfg), (k, v)
 
 
+# ---------------------------------------------------------- striped caches
+def init_kv_cache(cfg, batch, max_len, dtype, device, *, window=None):
+    """Ring-buffer (windowed) or linear KV cache for ONE attention layer:
+    {"k","v": (batch, W, kv, dh), "pos": (batch, W) int32 stored position
+    per ring slot, -1 = empty}; W = ``window`` or else ``max_len``.  The
+    slot (batch row) is axis 0 of every leaf."""
+    W = window if window is not None else max_len
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    return {"k": torch.zeros((batch, W, kv, dh), dtype=dtype, device=device),
+            "v": torch.zeros((batch, W, kv, dh), dtype=dtype, device=device),
+            "pos": torch.full((batch, W), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def kv_cache_from_prefill(cfg, k, v, positions, max_len, *, window=None):
+    """Prefill K/V (B,S,kv,dh) at ``positions`` (B,S) as a decode cache of
+    ring width W = min(window, max_len) (``max_len`` without a window).
+    When S > W only the last W entries are kept, each at its ring slot
+    ``pos % W``.  (The JAX package sizes this ring at ``window`` even when
+    ``max_len`` is shorter; such a ring never wraps, so the outputs are
+    the same, and the width then equals ``init_cache``'s.)"""
+    B, S = k.shape[0], k.shape[1]
+    W = min(window, max_len) if window is not None else max_len
+    cache = init_kv_cache(cfg, B, max_len, k.dtype, k.device, window=W)
+    if S <= W:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["pos"][:, :S] = positions.to(torch.int32)
+    else:
+        kt, vt, pt = k[:, -W:], v[:, -W:], positions[:, -W:].long()
+        bidx = torch.arange(B, device=k.device)[:, None]
+        slot = pt % W
+        cache["k"][bidx, slot] = kt
+        cache["v"][bidx, slot] = vt
+        cache["pos"][bidx, slot] = pt.to(torch.int32)
+    return cache
+
+
+def decode_attention(p, x, cache, cfg, positions, *, rope=True,
+                     window: Optional[int] = None,
+                     kernel_impl: str = "kernel"):
+    """Single-token decode against the striped ring cache of one layer.
+
+    x: (B,1,d); positions: (B,) current positions; cache: {"k","v","pos"}
+    of ring width W.  The new token's K/V and position are written at ring
+    slot ``positions % W`` first (plain indexing, in place), then the
+    token attends over every slot whose stored position is valid,
+    through the ring decode kernel.  The JAX package's ``cross_kv`` path
+    serves the encoder-decoder family only and is not ported.  Returns
+    (out (B,1,d), cache)."""
+    _check_impl(kernel_impl)
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, cfg, positions[:, None], rope)
+    W = cache["k"].shape[1]
+    pos = positions.long()
+    bidx = torch.arange(B, device=x.device)
+    slot = pos % W
+    cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos.to(torch.int32)
+    if kernel_impl == "kernel":
+        o = decode_attention_kernel(q[:, 0], cache["k"], cache["v"],
+                                    cache["pos"], positions, window=window)
+        o = o[:, None]
+    else:
+        spos = cache["pos"].long()
+        valid = (spos >= 0) & (spos <= pos[:, None])
+        if window is not None:
+            valid &= pos[:, None] - spos < window
+        o = _sdpa(q, cache["k"], cache["v"], valid[:, None, :], cfg)
+    return _out_proj(p, o, cfg), cache
+
+
 def paged_decode_attention(p, x, pool, cfg, positions, page_table, *,
                            rope=True, window: Optional[int] = None,
-                           attn_impl: str = "kernel"):
+                           kernel_impl: str = "kernel"):
     """Single-token decode against the shared page pool.
 
     x: (B,1,d) with B == n_slots; positions: (B,) int; pool: {"k","v"} of
     shape (P, page_size, kv, dh) whose LAST page is the trash page;
     page_table: (B, MP) int32 page ids, -1 empty.  The new token's K/V land
     in the page covering ``positions`` (FREE rows: the trash page), then
-    attention runs over the slot's own pages.  ``attn_impl="kernel"`` runs
-    the fused decode-step kernel.  The pools are updated in place.
+    attention runs over the slot's own pages, in the fused decode-step
+    kernel.  The pools are updated in place.
     Returns (out (B,1,d), pool)."""
-    _check_impl(attn_impl)
+    _check_impl(kernel_impl)
     B = x.shape[0]
     kv, dh = cfg.n_kv_heads, cfg.d_head
     q, k_new, v_new = _qkv(p, x, cfg, positions[:, None], rope)
-    if attn_impl == "kernel":
+    if kernel_impl == "kernel":
         o, _, _ = paged_decode_step(q[:, 0], k_new[:, 0], v_new[:, 0],
                                     pool["k"], pool["v"], page_table,
                                     positions + 1, window=window)

@@ -1,46 +1,64 @@
-"""Dense decoder model: init / forward / paged decode, in PyTorch.
+"""Decoder model (dense and hybrid): init / forward / decode, in PyTorch.
 
-The counterpart of ``repro.models.model`` for ``family="dense"`` (other
-families raise ``NotImplementedError``).  Parameters are a plain dict:
+The counterpart of ``repro.models.model`` for ``family="dense"`` and
+``family="hybrid"`` (RG-LRU + local attention, RecurrentGemma); other
+families raise ``NotImplementedError``.  Parameters are a plain dict:
 ``{"embed", "layers": [per-layer dict, ...], "final_norm"}`` plus
-``"head"`` when embeddings are not tied.  The JAX package stacks the trunk
-for ``lax.scan``; here a Python loop runs over ``layers`` in order
+``"head"`` when embeddings are not tied; a layer holds ``"attn"`` or
+``"rec"`` by its pattern entry.  The JAX package stacks the trunk for
+``lax.scan``; here a Python loop runs over ``layers`` in order
 (``repro_torch.bridge`` unstacks JAX parameters into this layout).
 
-The paged cache is ``{"layers": [{"k","v"}, ...], "pos", "pages"}``: one
-K and V page pool per attention layer, each (n_pages + 1, page_size, kv,
-dh) with the trash page at index n_pages, the per-slot positions and the
-shared (n_slots, max_pages) int32 page table.  Pools are updated in place.
+Two decode-cache layouts, both ``{"layers": [per-layer entry, ...],
+"pos": (n_slots,) int32, ...}``; recurrent layers keep their state
+``{"h","conv"}`` slot-indexed in either:
+- striped (``init_cache``): each attention layer holds a ring
+  ``{"k","v": (n_slots, W, kv, dh), "pos": (n_slots, W)}`` of width
+  W = min(window, max_len) (``max_len`` for global layers);
+- paged (``init_paged_cache``): each attention layer holds one K and V
+  page pool (n_pages + 1, page_size, kv, dh) with the trash page at
+  n_pages, and the top level the shared (n_slots, max_pages) int32 page
+  table ``"pages"``.
+Every leaf keeps the slot on axis 0 (the pools have no slot axis).
+Caches are updated in place.
 
 API:
   init_params(cfg, seed, dtype, device)             -> params
   forward(cfg, params, batch, build_cache=...)      -> {"logits", "kv"?}
   decode_step(cfg, params, cache, tokens, positions) -> (logits, cache)
-  init_paged_cache(cfg, n_slots, ...)                -> zeroed paged cache
+  init_cache(cfg, n_slots, max_len, ...)            -> zeroed striped cache
+  cache_from_prefill(cfg, kv, max_len)              -> striped cache
+  init_paged_cache(cfg, n_slots, ...)               -> zeroed paged cache
+  make_batch(cfg, batch, seq_len, seed, device)     -> {"tokens"}
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, paged_geometry,
                                           pages_for)
 
 Params = Dict[str, Any]
+FAMILIES = ("dense", "hybrid")
+ATTN_MIXERS = ("attn", "attn_full")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the PyTorch port covers family='dense' so far, not "
+            f"the PyTorch port covers families {FAMILIES} so far, not "
             f"{cfg.family!r} ({cfg.arch_id})")
     for entry in cfg.layer_pattern:
         mixer, ffn = entry.split(":")
-        if mixer not in ("attn", "attn_full") or ffn != "dense":
+        if mixer not in ATTN_MIXERS + ("rec",) or ffn != "dense":
             raise NotImplementedError(f"layer entry {entry!r} is not ported")
 
 
@@ -57,23 +75,34 @@ def _entries(cfg: ModelConfig) -> List[str]:
             for i in range(cfg.n_layers)]
 
 
+def _mixers(cfg: ModelConfig) -> List[str]:
+    return [e.split(":")[0] for e in _entries(cfg)]
+
+
 # ===================================================================== init
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Params:
     """Random weights with the JAX package's distributions (normal
     embeddings ×0.02, normal projections ×1/sqrt(d_in), unit norms, zero
-    biases), drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    target device (default: the GPU; pass ``device="cpu"`` for the CPU)."""
-    _check_dense(cfg)
+    biases, RG-LRU ``lam`` an fp32 ramp), drawn from a ``torch.Generator``
+    seeded with ``seed`` on the target device (default: the GPU; pass
+    ``device="cpu"`` for the CPU)."""
+    _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev)}
-    p["layers"] = [{"norm1": L.init_norm(cfg, dtype, dev),
-                    "attn": L.init_attention(cfg, gen, dtype, dev),
-                    "norm2": L.init_norm(cfg, dtype, dev),
-                    "ffn": L.init_ffn(cfg, gen, dtype, dev)}
-                   for _ in range(cfg.n_layers)]
+    layers = []
+    for mixer in _mixers(cfg):
+        lp = {"norm1": L.init_norm(cfg, dtype, dev)}
+        if mixer == "rec":
+            lp["rec"] = R.init_rec(cfg, gen, dtype, dev)
+        else:
+            lp["attn"] = L.init_attention(cfg, gen, dtype, dev)
+        lp["norm2"] = L.init_norm(cfg, dtype, dev)
+        lp["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
+        layers.append(lp)
+    p["layers"] = layers
     p["final_norm"] = L.init_norm(cfg, dtype, dev)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, dev)
@@ -82,7 +111,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 # ================================================================== embed
 def _embed_tokens(cfg: ModelConfig, params: Params, tokens):
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if cfg.family == "hybrid":          # gemma-style embedding scale
+        # JAX multiplies by the Python float cast to the activation dtype
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def _unembed(cfg: ModelConfig, params: Params, x):
@@ -99,28 +133,35 @@ def _ffn_block(p: Params, x, cfg: ModelConfig):
 # ================================================================= forward
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            build_cache: bool = False, attn_impl: str = "kernel"
-            ) -> Dict[str, Any]:
+            build_cache: bool = False, kernel_impl: str = "kernel",
+            last_only: bool = False) -> Dict[str, Any]:
     """Prefill forward.  batch: {"tokens": (B, S)}; positions are 0..S-1.
-    Returns {"logits": (B,S,V)} plus, with ``build_cache``, "kv": one
-    (k, v) pair of shape (B,S,kv,dh) per layer, ready for
-    ``paged_prefill_scatter``."""
-    _check_dense(cfg)
+    Returns {"logits": (B,S,V)} ((B,1,V) for the last position alone with
+    ``last_only``: the engines read no other row, and at a 256k vocabulary
+    the full tensor is gigabytes) plus, with ``build_cache``, "kv": per
+    layer either the attention (k, v) of shape (B,S,kv,dh) or the RG-LRU
+    state {"h","conv"}.  ``kernel_impl``: see ``models.layers``."""
+    _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     rope = cfg.rope_pct > 0.0
     x = _embed_tokens(cfg, params, tokens)
-    kv: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for lp, entry in zip(params["layers"], _entries(cfg)):
+    kv: List[Any] = []
+    for lp, mixer in zip(params["layers"], _mixers(cfg)):
         h = L.apply_norm(lp["norm1"], x, cfg)
-        a, (k, v) = L.full_attention(
-            lp["attn"], h, cfg, positions, rope=rope,
-            window=_mixer_window(cfg, entry.split(":")[0]),
-            attn_impl=attn_impl)
+        if mixer == "rec":
+            a, state = R.apply_rec(lp["rec"], h, cfg,
+                                    kernel_impl=kernel_impl)
+        else:
+            a, state = L.full_attention(
+                lp["attn"], h, cfg, positions, rope=rope,
+                window=_mixer_window(cfg, mixer), kernel_impl=kernel_impl)
         x = _ffn_block(lp, x + a, cfg)
         if build_cache:
-            kv.append((k, v))
+            kv.append(state)
+    if last_only:
+        x = x[:, -1:]
     out: Dict[str, Any] = {"logits": _unembed(cfg, params, x)}
     if build_cache:
         out["kv"] = kv
@@ -130,25 +171,96 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 # ============================================================== decode step
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, cache, tokens, positions,
-                *, attn_impl: str = "kernel"):
-    """tokens: (B,) last generated token; positions: (B,).  Every layer
-    appends the token's K/V to the paged pools (in place) and attends over
-    the slot's pages.  Returns (logits (B, V), cache) with ``cache["pos"]``
-    advanced to positions + 1."""
-    _check_dense(cfg)
+                *, kernel_impl: str = "kernel"):
+    """tokens: (B,) last generated token; positions: (B,).  A cache with a
+    ``"pages"`` table decodes attention layers against the paged pools
+    (the fused step kernel appends and attends); otherwise each attention
+    layer writes its ring slot and attends over the ring (the ring decode
+    kernel).  Recurrent layers take the single-step update either way.
+    Caches are updated in place.  Returns (logits (B, V), cache) with
+    ``cache["pos"]`` advanced to positions + 1."""
+    _check_family(cfg)
     rope = cfg.rope_pct > 0.0
+    paged = "pages" in cache
     x = _embed_tokens(cfg, params, tokens[:, None])
-    for lp, pool, entry in zip(params["layers"], cache["layers"],
-                               _entries(cfg)):
+    for i, (lp, mixer) in enumerate(zip(params["layers"], _mixers(cfg))):
         h = L.apply_norm(lp["norm1"], x, cfg)
-        a, _ = L.paged_decode_attention(
-            lp["attn"], h, pool, cfg, positions, cache["pages"], rope=rope,
-            window=_mixer_window(cfg, entry.split(":")[0]),
-            attn_impl=attn_impl)
+        entry = cache["layers"][i]
+        if mixer == "rec":
+            a, cache["layers"][i] = R.apply_rec_step(lp["rec"], h, cfg, entry)
+        elif paged:
+            a, _ = L.paged_decode_attention(
+                lp["attn"], h, entry, cfg, positions, cache["pages"],
+                rope=rope, window=_mixer_window(cfg, mixer),
+                kernel_impl=kernel_impl)
+        else:
+            a, _ = L.decode_attention(
+                lp["attn"], h, entry, cfg, positions, rope=rope,
+                window=_mixer_window(cfg, mixer), kernel_impl=kernel_impl)
         x = _ffn_block(lp, x + a, cfg)
     logits = _unembed(cfg, params, x)[:, 0]
     cache["pos"] = (positions + 1).to(torch.int32)
     return logits, cache
+
+
+# ========================================================== striped caches
+def _ring_width(cfg: ModelConfig, mixer: str, max_len: int) -> int:
+    win = _mixer_window(cfg, mixer)
+    return min(win, max_len) if win is not None else max_len
+
+
+def init_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
+               dtype=torch.float32, device=None):
+    """Zeroed striped decode cache: a ring per attention layer of width
+    W = min(window, max_len) (``max_len`` for global layers), the RG-LRU
+    state per recurrent layer, and the per-slot positions."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    layers = []
+    for mixer in _mixers(cfg):
+        if mixer == "rec":
+            layers.append(R.init_rec_state(cfg, n_slots, dtype, dev))
+        else:
+            layers.append(L.init_kv_cache(
+                cfg, n_slots, max_len, dtype, dev,
+                window=_ring_width(cfg, mixer, max_len)))
+    return {"layers": layers,
+            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+
+
+def cache_from_prefill(cfg: ModelConfig, kv, max_len: int):
+    """The striped decode cache of a prefill batch, from
+    ``forward(build_cache=True)["kv"]``: each attention layer's K/V become
+    its ring (the last W tokens at their ring slots when the prompt is
+    longer than the ring), each recurrent layer's final state is kept, and
+    every row's position is the prompt length."""
+    layers, k = [], None
+    for mixer, entry in zip(_mixers(cfg), kv):
+        if mixer == "rec":
+            layers.append(entry)
+            continue
+        k, v = entry
+        B, S = k.shape[0], k.shape[1]
+        positions = torch.arange(S, device=k.device).expand(B, S)
+        layers.append(L.kv_cache_from_prefill(
+            cfg, k, v, positions, max_len,
+            window=_ring_width(cfg, mixer, max_len)))
+    if k is None:
+        raise ValueError("cache_from_prefill needs an attention layer to "
+                         "read the prompt length from")
+    return {"layers": layers,
+            "pos": torch.full((B,), S, dtype=torch.int32, device=k.device)}
+
+
+# ============================================================== batch maker
+def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Random token batch {"tokens": (batch, seq_len) int64} drawn with
+    numpy from ``seed`` (dense and hybrid families carry tokens only)."""
+    _check_family(cfg)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq_len))
+    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
 
 
 # ============================================================ paged caches
@@ -157,11 +269,12 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
                      max_pages: Optional[int] = None,
                      max_len: Optional[int] = None, dtype=torch.float32,
                      device=None):
-    """Zeroed paged decode cache: per-layer page pools carry ONE extra
-    trash page (index n_pages) that absorbs writes from FREE slots, and
-    the top level holds the shared page table (all -1).
-    ``n_pages``/``max_pages`` default from ``max_len``."""
-    _check_dense(cfg)
+    """Zeroed paged decode cache: per-attention-layer page pools carry ONE
+    extra trash page (index n_pages) that absorbs writes from FREE slots,
+    recurrent layers hold their state per slot, and the top level holds
+    the shared page table (all -1).  ``n_pages``/``max_pages`` default
+    from ``max_len``."""
+    _check_family(cfg)
     dev = resolve_device(device)
     if page_size is None:
         page_size = DEFAULT_PAGE_SIZE
@@ -176,30 +289,41 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
         if n_pages is None:
             n_pages = n_slots * max_pages
     shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.d_head)
-    pools = [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-              "v": torch.zeros(shape, dtype=dtype, device=dev)}
-             for _ in range(cfg.n_layers)]
-    return {"layers": pools,
+    layers = [R.init_rec_state(cfg, n_slots, dtype, dev) if mixer == "rec"
+              else {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+              for mixer in _mixers(cfg)]
+    return {"layers": layers,
             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev),
             "pages": torch.full((n_slots, max_pages), -1, dtype=torch.int32,
                                 device=dev)}
 
 
 def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row):
-    """Write a batch-1 prefill's K/V (``forward(build_cache=True)["kv"]``)
-    straight into ``slot``'s pages, in place.  Whole pages are written:
-    the tail of the prompt's last page gets zeros, as the JAX package's
+    """Write a batch-1 prefill (``forward(build_cache=True)["kv"]``)
+    into ``slot``, in place: attention K/V straight into the slot's pages,
+    recurrent state into the slot's row.  Whole pages are written: the
+    tail of the prompt's last page gets zeros, as the JAX package's
     page-granular scatter of its zero-padded ring cache gives, so the pools
-    match it byte for byte outside the trash page.  Unallocated table
-    entries land on the trash page."""
-    S = kv[0][0].shape[1]
+    match it byte for byte outside the trash page.  Every prompt token is
+    written, also those a window has left behind (the JAX package writes
+    only its ring's last W): decode masks them, so the outputs are the
+    same.  Unallocated table entries land on the trash page."""
+    attn = [(pool, e) for pool, e, mixer in zip(cache["layers"], kv,
+                                                 _mixers(cfg))
+            if mixer != "rec"]
+    for state, e, mixer in zip(cache["layers"], kv, _mixers(cfg)):
+        if mixer == "rec":
+            state["h"][slot] = e["h"][0].to(state["h"].dtype)
+            state["conv"][slot] = e["conv"][0].to(state["conv"].dtype)
+    S = attn[0][1][0].shape[1]
     MP = pt_row.shape[0]
-    P, ps = cache["layers"][0]["k"].shape[:2]
+    P, ps = attn[0][0]["k"].shape[:2]
     npg = max(min(-(-S // ps), MP), 1)
     row = pt_row[:npg].long()
     pg = torch.where(row >= 0, row, P - 1)
     n = min(S, npg * ps)
-    for pool, (k, v) in zip(cache["layers"], kv):
+    for pool, (k, v) in attn:
         for name, src in (("k", k), ("v", v)):
             dst = pool[name]
             pages = torch.zeros((npg * ps,) + tuple(dst.shape[2:]),
@@ -212,9 +336,11 @@ def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row):
 
 def supports_prefix_sharing(cfg: ModelConfig) -> bool:
     """CoW prefix sharing covers configs whose every layer keeps paged
-    attention state (every dense config)."""
+    attention state (every dense config): recurrent layers fold the whole
+    prefix into one state vector, which cannot be shared by pages, so the
+    hybrid family is excluded."""
     return cfg.family != "encdec" and all(
-        e.split(":")[0] in ("attn", "attn_full") for e in _entries(cfg))
+        mixer in ATTN_MIXERS for mixer in _mixers(cfg))
 
 
 @torch.no_grad()
@@ -227,7 +353,10 @@ def paged_suffix_prefill(cfg: ModelConfig, params: Params, cache, tokens,
     positions run start..start+S-1.  Each layer writes the suffix K/V into
     the slot's pages and attends suffix queries over the slot's table.
     Returns (last-position logits (1, V), cache)."""
-    _check_dense(cfg)
+    _check_family(cfg)
+    if not supports_prefix_sharing(cfg):
+        raise NotImplementedError(f"suffix prefill covers attention-only "
+                                  f"configs, not {cfg.arch_id}")
     S = tokens.shape[1]
     pt_row = cache["pages"][slot]
     positions = (start + torch.arange(S, device=tokens.device))[None]
@@ -247,8 +376,10 @@ def paged_suffix_prefill(cfg: ModelConfig, params: Params, cache, tokens,
 
 def paged_copy_page(cfg: ModelConfig, cache, src: int, dst: int):
     """Fork-on-write device copy: duplicate pool page ``src`` into ``dst``
-    in every layer's pools, in place."""
-    for pool in cache["layers"]:
+    in every attention layer's pools, in place."""
+    for pool, mixer in zip(cache["layers"], _mixers(cfg)):
+        if mixer == "rec":
+            continue
         pool["k"][dst] = pool["k"][src]
         pool["v"][dst] = pool["v"][src]
     return cache

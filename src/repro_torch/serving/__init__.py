@@ -1,4 +1,5 @@
-from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                        InferenceEngine)
 from repro_torch.serving.scheduler import (ADMISSION_POLICIES, DEFAULT_SLOTS,
                                            AdmissionPolicy, EDFPolicy,
                                            Scheduler, SeqState,
@@ -6,6 +7,6 @@ from repro_torch.serving.scheduler import (ADMISSION_POLICIES, DEFAULT_SLOTS,
 from repro_torch.serving.workload import (SLOClass,
                                           make_shared_prefix_prompts)
 
-__all__ = ["ContinuousBatchingEngine", "ADMISSION_POLICIES", "DEFAULT_SLOTS",
+__all__ = ["ContinuousBatchingEngine", "InferenceEngine", "ADMISSION_POLICIES", "DEFAULT_SLOTS",
            "AdmissionPolicy", "EDFPolicy", "Scheduler", "SeqState",
            "StrictPriorityPolicy", "SLOClass", "make_shared_prefix_prompts"]

@@ -1,17 +1,20 @@
-"""Continuous-batching engine on the paged KV cache, in PyTorch.
+"""Inference engines in PyTorch: static-batch and continuous-batching.
 
-The counterpart of ``repro.serving.engine.ContinuousBatchingEngine`` for
-the paged layout and the ``unified`` role: it executes the request-level
-schedule of ``repro_torch.serving.scheduler`` over one shared page pool.
-Each tick advances every live slot by one pooled decode step (the fused
-paged decode kernel, one launch per attention layer) and prefills new
-arrivals into free slots (the flash prefill kernel), with copy-on-write
-prefix sharing: a prompt whose leading pages are cached shares them and
-prefills only its suffix.
+The counterparts of ``repro.serving.engine``.  ``InferenceEngine`` is the
+static loop (one prefill, a fixed decode loop over the striped ring
+cache: the ring decode kernel, one launch per attention layer per step).
+``ContinuousBatchingEngine`` executes the request-level schedule of
+``repro_torch.serving.scheduler`` in the ``unified`` role, on the paged
+KV cache by default or, with ``paged=False``, on per-slot striped rings.
+Each tick advances every live slot by one pooled decode step and
+prefills new arrivals into free slots (the flash prefill kernel; the
+RG-LRU scan kernel for recurrent layers).  On the paged layout
+copy-on-write prefix sharing lets a prompt whose leading pages are cached
+share them and prefill only its suffix (attention-only configs).
 
 PyTorch runs eagerly, so there are no per-shape executables; the decode
-kernel bounds its page walk by each slot's length, so the JAX engine's
-live-page buckets are not needed either.  The pools are updated in place.
+kernels bound their walks by each slot's length, so the JAX engine's
+live-page buckets are not needed either.  Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (DEFAULT_PAGE_SIZE, PageTable, PrefixIndex,
-                                decode_step, forward, init_paged_cache,
-                                paged_copy_page, paged_geometry,
-                                paged_prefill_scatter, paged_suffix_prefill,
-                                pages_for, supports_prefix_sharing)
+                                cache_from_prefill, cache_scatter,
+                                decode_step, forward, init_cache,
+                                init_paged_cache, paged_copy_page,
+                                paged_geometry, paged_prefill_scatter,
+                                paged_suffix_prefill, pages_for,
+                                supports_prefix_sharing)
 from repro_torch.serving.scheduler import (DEFAULT_SLOTS, AdmissionPolicy,
                                            Scheduler, SeqState)
 
@@ -32,22 +37,77 @@ if TYPE_CHECKING:                                    # pragma: no cover
     from repro_torch.serving.workload import SLOClass
 
 
+class InferenceEngine:
+    """Static-batch reference engine: one prefill, fixed decode loop over
+    the striped ring cache.  ``kernel_impl``: see ``models.layers``."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 4096,
+                 kernel_impl: str = "kernel"):
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.kernel_impl = kernel_impl
+
+    def prefill(self, batch: Dict, cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, dict]:
+        """Last-position logits (B, V) and the striped decode cache."""
+        cache_len = cache_len or self.max_len
+        out = forward(self.cfg, self.params, batch, build_cache=True,
+                      kernel_impl=self.kernel_impl, last_only=True)
+        return out["logits"][:, -1], cache_from_prefill(self.cfg, out["kv"],
+                                                        cache_len)
+
+    def generate(self, batch: Dict, max_new_tokens: int, *,
+                 greedy: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 temperature: float = 1.0,
+                 cache_len: Optional[int] = None) -> torch.Tensor:
+        """Returns (B, max_new_tokens) generated token ids.  ``greedy=False``
+        samples from softmax(logits / temperature) with ``generator`` (a
+        ``torch.Generator`` on the parameters' device)."""
+        if not greedy and generator is None:
+            raise ValueError("sampling needs a torch.Generator")
+        logits, cache = self.prefill(
+            batch,
+            cache_len=cache_len or batch["tokens"].shape[1] + max_new_tokens)
+        tok = self._sample(logits, greedy, generator, temperature)
+        toks = [tok]
+        for _ in range(1, max_new_tokens):
+            logits, cache = decode_step(self.cfg, self.params, cache, tok,
+                                        cache["pos"],
+                                        kernel_impl=self.kernel_impl)
+            tok = self._sample(logits, greedy, generator, temperature)
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+
+    @staticmethod
+    def _sample(logits, greedy, generator, temperature):
+        if greedy:
+            return logits.argmax(-1)
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
 class ContinuousBatchingEngine:
     """Slot-pool engine executing the continuous-batching schedule.
 
-    The paged decode cache for ``n_slots`` lives on the parameters'
-    device; each scheduler tick (a) advances the whole pool one decode
-    step, keeping only the tokens of live slots, and (b) prefills up to
+    The decode cache for ``n_slots`` lives on the parameters' device:
+    paged by default, per-slot striped rings with ``paged=False`` (the
+    baseline layout; prefill is forward plus a slot scatter, and every
+    leaf of the slot, recurrent state included, is overwritten).  Each
+    scheduler tick (a) advances the whole pool one decode step, keeping
+    only the tokens of live slots, and (b) prefills up to
     ``max_prefill_per_tick`` queued requests into free slots.  Greedy
-    decoding only.  ``attn_impl="plain"`` swaps both kernels for plain
-    tensor ops (a check, not the serving path).
+    decoding only.  Prefix sharing needs the paged layout and an
+    attention-only config, and is off otherwise.  ``kernel_impl``: see
+    ``models.layers``.
     """
 
     def __init__(self, cfg: ModelConfig, params, *,
                  n_slots: int = DEFAULT_SLOTS, max_len: int = 512,
-                 max_prefill_per_tick: int = 1,
+                 max_prefill_per_tick: int = 1, paged: bool = True,
                  page_size=DEFAULT_PAGE_SIZE,
-                 n_pages: Optional[int] = None, attn_impl: str = "kernel",
+                 n_pages: Optional[int] = None, kernel_impl: str = "kernel",
                  prefix_sharing: bool = True,
                  policy: Optional[AdmissionPolicy] = None,
                  shed_limit: Optional[int] = None):
@@ -56,28 +116,34 @@ class ContinuousBatchingEngine:
         self.device = params["embed"].device
         self.n_slots = n_slots
         self.max_len = max_len
-        self.attn_impl = attn_impl
-        self.prefix_sharing = bool(prefix_sharing
+        self.kernel_impl = kernel_impl
+        self.paged = paged
+        self.prefix_sharing = bool(paged and prefix_sharing
                                    and supports_prefix_sharing(cfg))
-        page_size, _ = paged_geometry(cfg, n_slots, max_len,
-                                      page_size=page_size,
-                                      shared=self.prefix_sharing)
-        self.page_size = page_size
-        self.max_pages = pages_for(max_len, page_size)
-        self.n_pages = n_pages or n_slots * self.max_pages
-        self.pages = PageTable(self.n_pages, page_size, n_slots,
-                               self.max_pages)
-        if self.prefix_sharing:
-            self.pages.prefix = PrefixIndex(page_size)
+        dtype = params["embed"].dtype
+        if paged:
+            page_size, _ = paged_geometry(cfg, n_slots, max_len,
+                                          page_size=page_size,
+                                          shared=self.prefix_sharing)
+            self.page_size = page_size
+            self.max_pages = pages_for(max_len, page_size)
+            self.n_pages = n_pages or n_slots * self.max_pages
+            self.pages = PageTable(self.n_pages, page_size, n_slots,
+                                   self.max_pages)
+            if self.prefix_sharing:
+                self.pages.prefix = PrefixIndex(page_size)
+            self.cache = init_paged_cache(
+                cfg, n_slots, n_pages=self.n_pages, page_size=page_size,
+                max_pages=self.max_pages, dtype=dtype, device=self.device)
+            self.cache["pages"] = self.pages.device_table(self.device)
+        else:
+            self.pages = None
+            self.cache = init_cache(cfg, n_slots, max_len, dtype=dtype,
+                                    device=self.device)
         self.sched = Scheduler(n_slots,
                                max_prefill_per_tick=max_prefill_per_tick,
                                pages=self.pages, policy=policy,
                                shed_limit=shed_limit)
-        self.cache = init_paged_cache(
-            cfg, n_slots, n_pages=self.n_pages, page_size=page_size,
-            max_pages=self.max_pages, dtype=params["embed"].dtype,
-            device=self.device)
-        self.cache["pages"] = self.pages.device_table(self.device)
         # every update makes a NEW tensor: pending records keep a
         # reference and read their slot at flush time
         self._last_tok = torch.zeros((n_slots,), dtype=torch.int64,
@@ -107,7 +173,7 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"request needs {need} cache slots "
                 f"but the pool was built with max_len={self.max_len}")
-        if pages_for(need, self.page_size) > self.n_pages:
+        if self.paged and pages_for(need, self.page_size) > self.n_pages:
             raise ValueError(
                 f"request needs more pages than the whole pool holds "
                 f"({self.n_pages} × {self.page_size} tokens)")
@@ -169,13 +235,19 @@ class ContinuousBatchingEngine:
         else:
             tokens = torch.tensor([toks], dtype=torch.int64,
                                   device=self.device)
-            self.pages.ensure(slot, len(toks))
-            self.cache["pages"] = self.pages.device_table(self.device)
             out = forward(self.cfg, self.params, {"tokens": tokens},
-                          build_cache=True, attn_impl=self.attn_impl)
+                          build_cache=True, kernel_impl=self.kernel_impl,
+                          last_only=True)
             self._set_first(slot, out["logits"][:, -1])
-            paged_prefill_scatter(self.cfg, self.cache, out["kv"], slot,
-                                  self.cache["pages"][slot])
+            if self.paged:
+                self.pages.ensure(slot, len(toks))
+                self.cache["pages"] = self.pages.device_table(self.device)
+                paged_prefill_scatter(self.cfg, self.cache, out["kv"], slot,
+                                      self.cache["pages"][slot])
+            else:
+                cache_scatter(self.cache,
+                              cache_from_prefill(self.cfg, out["kv"],
+                                                 self.max_len), slot)
         if self.prefix_sharing:
             # index the prompt's immutable pages so later prompts can
             # share them; decode never appends into an indexed page
@@ -200,14 +272,15 @@ class ContinuousBatchingEngine:
         # decode first: the pooled decode step advances EVERY cache row,
         # so freshly-prefilled rows must be written after it, not before
         if tick.decode:
-            # the incoming token's page must exist before the step writes
-            # its K/V at position seq.pos - 1
-            for slot in tick.decode:
-                self.pages.ensure(slot, self.sched.slots[slot].pos)
-            self.cache["pages"] = self.pages.device_table(self.device)
+            if self.paged:
+                # the incoming token's page must exist before the step
+                # writes its K/V at position seq.pos - 1
+                for slot in tick.decode:
+                    self.pages.ensure(slot, self.sched.slots[slot].pos)
+                self.cache["pages"] = self.pages.device_table(self.device)
             logits, self.cache = decode_step(
                 self.cfg, self.params, self.cache, self._last_tok,
-                self.cache["pos"], attn_impl=self.attn_impl)
+                self.cache["pos"], kernel_impl=self.kernel_impl)
             self._last_tok = logits.argmax(-1)
             for slot in tick.decode:
                 seq = self.sched.slots[slot]

@@ -1,11 +1,13 @@
-"""The port's continuous-batching engine and page allocator against the
-JAX package.
+"""The port's engines and page allocator against the JAX package.
 
 The engine cases run one mixed trace with shared prompt prefixes (a
 page-aligned match and a mid-page divergence that forks) through the
 JAX ``ContinuousBatchingEngine`` and the port's, on the same weights via
 ``repro_torch.bridge``, and require IDENTICAL greedy tokens, with prefix
-sharing on and off.  The allocator cases are the property tests of
+sharing on and off.  The static ``InferenceEngine``, the striped layout
+(``paged=False``) and the hybrid family (reduced recurrentgemma-2b, five
+layers, window 64; prompts and decodes cross the window) are held to the
+JAX engines the same way.  The allocator cases are the property tests of
 ``tests/test_paged.py`` and ``tests/test_prefix_sharing.py`` re-run
 against the port's ``PageTable`` and ``PrefixIndex``.
 """
@@ -18,26 +20,30 @@ from hypothesis import given, settings, strategies as st
 from repro.configs import get_config, reduced
 from repro.models import init_params
 from repro.serving.engine import ContinuousBatchingEngine as JaxEngine
+from repro.serving.engine import InferenceEngine as JaxStaticEngine
 from repro_torch import configs as pconfigs
 from repro_torch.bridge import params_from_jax
 from repro_torch.models import PageTable, PrefixIndex, pages_for
-from repro_torch.serving import ContinuousBatchingEngine
+from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
 
 MAX_LEN = 48
 PAGE_SIZE = 16
+HYBRID = "recurrentgemma-2b"
+HYBRID_MAX_LEN = 96            # the ring (window 64) is shorter than the pool
 _CTX = {}
 
 
-def _ctx():
-    if not _CTX:
-        cfg = reduced(get_config("qwen2.5-3b"), d_model=64)
-        pcfg = pconfigs.reduced(pconfigs.get_config("qwen2.5-3b"),
-                                d_model=64)
+def _ctx(arch="qwen2.5-3b"):
+    if arch not in _CTX:
+        n_layers = 5 if arch == HYBRID else None
+        cfg = reduced(get_config(arch), d_model=64, n_layers=n_layers)
+        pcfg = pconfigs.reduced(pconfigs.get_config(arch), d_model=64,
+                                n_layers=n_layers)
         jp = init_params(cfg, jax.random.PRNGKey(0))
-        _CTX.update(cfg=cfg, pcfg=pcfg, jp=jp,
-                    tp=params_from_jax(pcfg, jax.device_get(jp),
-                                       device="cpu"))
-    return _CTX
+        _CTX[arch] = dict(cfg=cfg, pcfg=pcfg, jp=jp,
+                          tp=params_from_jax(pcfg, jax.device_get(jp),
+                                             device="cpu"))
+    return _CTX[arch]
 
 
 def _trace():
@@ -96,7 +102,7 @@ def test_engine_plain_attention_equal_kernel_path():
     trace = _trace()[:5]
     kw = dict(n_slots=3, max_len=MAX_LEN, page_size=PAGE_SIZE)
     a = _run(ContinuousBatchingEngine(c["pcfg"], c["tp"], **kw), trace)
-    b = _run(ContinuousBatchingEngine(c["pcfg"], c["tp"], attn_impl="plain",
+    b = _run(ContinuousBatchingEngine(c["pcfg"], c["tp"], kernel_impl="plain",
                                       **kw), trace)
     assert a == b
 
@@ -109,6 +115,83 @@ def test_engine_rejects_auto_page_size_and_oversize():
     eng = ContinuousBatchingEngine(c["pcfg"], c["tp"], max_len=MAX_LEN)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(list(range(40)), 10)
+
+
+def _hybrid_trace():
+    """Prompts past the window (70: the keep-last-W prefill) and ones
+    whose decode crosses it (60 + 12), three distinct lengths."""
+    rng = np.random.default_rng(12)
+    tok = lambda n: list(map(int, rng.integers(0, 512, n)))
+    lens_new = [(70, 6), (20, 9), (60, 12), (20, 5), (70, 10)]
+    return [(tok(n), m) for n, m in lens_new]
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID])
+def test_static_engine_tokens_equal_jax(arch):
+    c = _ctx(arch)
+    S = 70 if arch == HYBRID else 20
+    toks = np.random.default_rng(13).integers(0, 512, (3, S))
+    want = JaxStaticEngine(c["cfg"], c["jp"]).generate(
+        {"tokens": jax.numpy.asarray(toks, jax.numpy.int32)}, 8)
+    eng = InferenceEngine(c["pcfg"], c["tp"])
+    got = eng.generate({"tokens": torch.from_numpy(toks)}, 8)
+    assert got.tolist() == np.asarray(want).tolist()
+    # sampling: reproducible from an explicit generator, tokens in range
+    draws = [eng.generate({"tokens": torch.from_numpy(toks)}, 4,
+                          greedy=False,
+                          generator=torch.Generator().manual_seed(5))
+             for _ in range(2)]
+    assert torch.equal(draws[0], draws[1]) and draws[0].shape == (3, 4)
+    assert 0 <= int(draws[0].min()) and int(draws[0].max()) < 512
+    with pytest.raises(ValueError, match="Generator"):
+        eng.generate({"tokens": torch.from_numpy(toks)}, 2, greedy=False)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID])
+def test_striped_engine_tokens_equal_jax(arch):
+    c = _ctx(arch)
+    if arch == HYBRID:
+        trace, max_len = _hybrid_trace(), HYBRID_MAX_LEN
+    else:
+        trace, max_len = _trace()[:5], MAX_LEN
+    kw = dict(n_slots=3, max_len=max_len, paged=False)
+    want = _run(JaxEngine(c["cfg"], c["jp"], **kw), trace)
+    eng = ContinuousBatchingEngine(c["pcfg"], c["tp"], **kw)
+    got = _run(eng, trace)
+    assert got == want
+    assert all(len(got[i]) == n for i, (_, n) in enumerate(trace))
+    assert eng.pages is None and not eng.prefix_sharing
+
+
+def test_hybrid_paged_engine_tokens_equal_jax():
+    c = _ctx(HYBRID)
+    trace = _hybrid_trace()
+    kw = dict(n_slots=3, max_len=HYBRID_MAX_LEN, page_size=PAGE_SIZE)
+    want = _run(JaxEngine(c["cfg"], c["jp"], **kw), trace)
+    eng = ContinuousBatchingEngine(c["pcfg"], c["tp"], **kw)
+    got = _run(eng, trace)
+    assert got == want
+    assert not eng.prefix_sharing           # recurrent state: forced off
+    eng.pages.check_invariants()
+    assert eng.pages.n_allocated == 0
+
+
+def test_hybrid_engines_agree_across_layouts_and_impls():
+    """Static, striped and paged engines give one greedy continuation per
+    request, on the kernel path and the plain one."""
+    c = _ctx(HYBRID)
+    trace = [(p, 8) for p, _ in _hybrid_trace()[:3]]
+    runs = []
+    for impl in ("kernel", "plain"):
+        for paged in (True, False):
+            runs.append(_run(ContinuousBatchingEngine(
+                c["pcfg"], c["tp"], n_slots=2, max_len=HYBRID_MAX_LEN,
+                paged=paged, kernel_impl=impl), trace))
+    assert all(r == runs[0] for r in runs)
+    static = InferenceEngine(c["pcfg"], c["tp"], kernel_impl="plain")
+    for i, (p, n) in enumerate(trace):
+        got = static.generate({"tokens": torch.tensor([p])}, n)
+        assert got[0].tolist() == runs[0][i]
 
 
 # ------------------------------------------------------------- allocator

@@ -6,18 +6,24 @@ without the suite's JAX fixture:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Shapes are the fuzz harness's buckets (``tests/test_kernel_fuzz.py``),
-which reach widths the serving path never uses (dh=8, 4-token pages);
-``chip_smoke.py`` covers the serving path's shapes.  Tolerances are the
-harness's: 2e-5 in fp32 (TF32 off) and 2e-2 in bf16, with the pools
-byte-equal outside the trash page.
+Shapes are the fuzz harness's buckets (``tests/test_kernel_fuzz.py``) and
+the RG-LRU sweep of ``tests/test_kernels.py``, which reach widths the
+serving path never uses (dh=8, 4-token pages); ``chip_smoke.py`` covers
+the serving path's shapes.  Tolerances are theirs: 2e-5 in fp32 (TF32
+off) and 2e-2 in bf16 for attention, with the pools byte-equal outside
+the trash page; 1e-4 and 5e-2 for the scan.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, paged_decode_step
-from repro_torch.kernels.ref import flash_attention_ref, paged_decode_step_ref
+from repro_torch.kernels import (KERNELS, decode_attention, flash_attention,
+                                 paged_decode_attention, paged_decode_step,
+                                 rglru_scan)
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                     flash_attention_ref,
+                                     paged_decode_attention_ref,
+                                     paged_decode_step_ref, rglru_scan_ref)
 
 SEED = 20261016
 TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -30,6 +36,10 @@ PAGED_BUCKETS = [
     (2, 4, 2, 16, 16, 2, None, "bf16"),
     (3, 2, 2, 8, 8, 3, 5, "bf16"),
     (2, 6, 3, 16, 8, 4, None, "f32"),
+    # recurrentgemma-2b's heads: g = 10 query heads per KV head (more than
+    # the kernels' 8 warps), dh 256 (the fp32 tile at the register budget)
+    (2, 10, 1, 256, 16, 6, 40, "f32"),
+    (3, 10, 1, 256, 16, 5, None, "bf16"),
 ]
 # (B, H, KVH, S, dh, causal, window, dtype); S not a tile multiple too
 FLASH_BUCKETS = [
@@ -41,7 +51,24 @@ FLASH_BUCKETS = [
     (2, 4, 2, 64, 16, True, 64, "f32"),
     (1, 4, 2, 77, 64, True, None, "f32"),
     (1, 4, 2, 200, 128, True, 33, "bf16"),
+    (1, 10, 1, 130, 256, True, 64, "f32"),
+    (2, 4, 1, 71, 256, True, None, "bf16"),
+    (1, 2, 1, 40, 192, True, None, "f32"),
 ]
+# (B, H, KVH, W, dh, window, dtype)
+DECODE_BUCKETS = [
+    (2, 4, 2, 32, 32, None, "f32"),
+    (2, 4, 1, 64, 16, 24, "f32"),
+    (1, 8, 8, 32, 16, None, "bf16"),
+    (3, 2, 2, 64, 32, 16, "bf16"),
+    (2, 4, 2, 64, 16, None, "f32"),
+    (1, 2, 1, 32, 64, 8, "f32"),
+    (2, 10, 1, 100, 256, 64, "bf16"),
+    (2, 10, 1, 100, 256, None, "f32"),
+]
+# (B, S, d)
+SCAN_SHAPES = [(2, 512, 256), (1, 1024, 128), (3, 256, 384), (1, 64, 128),
+               (2, 1, 96), (1, 17, 2560), (2, 100, 200)]
 
 
 @pytest.fixture
@@ -144,10 +171,121 @@ def test_flash_attention_kernel_matches_plain(cuda, bidx):
                                    rtol=_tol(dt))
 
 
+def _paged_case(rng, B, H, KVH, dh, ps, MP, dt, dev, zero_row=None):
+    P = B * MP + 2
+    lens = [_ragged_len(rng, ps, MP) for _ in range(B)]
+    if zero_row is not None:
+        lens[zero_row] = 0
+    table = np.full((B, MP), -1, np.int32)
+    free = list(rng.permutation(P - 1))
+    for b, n in enumerate(lens):
+        for c in range(-(-n // ps)):
+            table[b, c] = free.pop()
+    q = _t(rng.standard_normal((B, H, dh)), dt, dev)
+    k = _t(rng.standard_normal((P, ps, KVH, dh)), dt, dev)
+    v = _t(rng.standard_normal((P, ps, KVH, dh)), dt, dev)
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev)), lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bidx", range(len(PAGED_BUCKETS)))
+def test_paged_decode_attention_kernel_matches_plain(cuda, bidx):
+    """Read-only paged attention; every other case has a lens == 0 row
+    (the uniform mean over all MP·ps entries)."""
+    B, H, KVH, dh, ps, MP, window, dt = PAGED_BUCKETS[bidx]
+    for i in range(20):
+        rng = np.random.default_rng([SEED, 6, bidx, i])
+        args, lens = _paged_case(rng, B, H, KVH, dh, ps, MP, dt, cuda,
+                                 zero_row=(i % B) if i % 2 else None)
+        out = paged_decode_attention(*args, window=window)
+        ref = paged_decode_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), ref.float(), atol=_tol(dt), rtol=_tol(dt),
+            msg=lambda m: f"bucket={PAGED_BUCKETS[bidx]} lens={lens}\n{m}")
+
+
+def _ring(rng, B, H, KVH, W, dh, dt, dev):
+    """Rings filled 1..2W per row (wrapped past W), garbage in empty
+    slots."""
+    spos = np.full((B, W), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    for b in range(B):
+        fill = int(np.clip(_ragged_len(rng, W, 2), 1, 2 * W))
+        for t in range(fill):
+            spos[b, t % W] = t
+        pos[b] = fill - 1
+    q = _t(rng.standard_normal((B, H, dh)), dt, dev)
+    k = _t(rng.standard_normal((B, W, KVH, dh)), dt, dev)
+    v = _t(rng.standard_normal((B, W, KVH, dh)), dt, dev)
+    return (q, k, v, torch.from_numpy(spos).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bidx", range(len(DECODE_BUCKETS)))
+def test_decode_attention_kernel_matches_plain(cuda, bidx):
+    B, H, KVH, W, dh, window, dt = DECODE_BUCKETS[bidx]
+    for i in range(20):
+        rng = np.random.default_rng([SEED, 3, bidx, i])
+        args = _ring(rng, B, H, KVH, W, dh, dt, cuda)
+        out = decode_attention(*args, window=window)
+        ref = decode_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dt),
+                                   rtol=_tol(dt))
+
+
+@pytest.mark.gpu
+def test_decode_attention_masked_slots_skipped_and_empty_row(cuda):
+    """NaN in masked ring slots never reaches a row that has a valid slot;
+    a row with none is the uniform mean of V, as the plain version."""
+    rng = np.random.default_rng([SEED, 10])
+    q, k, v, spos, pos = _ring(rng, 3, 8, 2, 96, 64, "f32", cuda)
+    spos[0, 50:] = -1                    # row 0: slots 50.. empty (NaN)
+    pos[0] = 49
+    spos[0, :50] = torch.arange(50, device=cuda, dtype=torch.int32)
+    spos[1] = -1                         # row 1: no valid slot
+    ref = decode_attention_ref(q, k, v, spos, pos)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 50:] = float("nan")
+    v2[0, 50:] = float("inf")
+    out = decode_attention(q, k2, v2, spos, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[0], ref[0], atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(out[1:], ref[1:], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_rglru_scan_kernel_matches_plain(cuda, shape, dt):
+    B, S, d = shape
+    rng = np.random.default_rng([SEED, 5, B, S, d])
+    a = _t(rng.uniform(0.7, 0.999, (B, S, d)), dt, cuda)
+    b = _t(rng.standard_normal((B, S, d)) * 0.1, dt, cuda)
+    h0 = torch.tensor(rng.standard_normal((B, d)), dtype=torch.float32,
+                      device=cuda)
+    out = rglru_scan(a, b, h0)
+    ref = rglru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    tol = 5e-2 if dt == "bf16" else 1e-4
+    assert out.dtype == a.dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches(cuda):
-    before = (paged_decode_step.launches, flash_attention.launches)
+    before = {fn.__name__: fn.launches for fn in KERNELS}
     q = torch.zeros((1, 2, 3, 16), device=cuda)
     flash_attention(q, q[:, :1], q[:, :1])
-    assert flash_attention.launches == before[1] + 1
-    assert paged_decode_step.launches == before[0]
+    a = torch.zeros((1, 3, 8), device=cuda)
+    rglru_scan(a, a, a[:, 0])
+    after = {fn.__name__: fn.launches for fn in KERNELS}
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["rglru_scan"] == before["rglru_scan"] + 1
+    for name in ("paged_decode_step", "paged_decode_attention",
+                 "decode_attention"):
+        assert after[name] == before[name]

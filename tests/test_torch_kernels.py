@@ -2,11 +2,14 @@
 
 On the CPU each wrapper runs its plain PyTorch version, held here to the
 JAX package's oracles (``repro.kernels.ref``) and to its Pallas kernels in
-interpret mode, as ``tests/test_kernel_fuzz.py`` runs them, over that
-harness's shape buckets (ragged lens, shuffled tables, windows, bf16).
-Tolerances are the harness's: 2e-5 in fp32 and 2e-2 in bf16, with the
-pools byte-equal outside the trash page.  ``tests/test_torch_gpu.py``
-holds the CUDA kernels to these plain versions on the card.
+interpret mode, as ``tests/test_kernel_fuzz.py`` and
+``tests/test_kernels.py`` run them, over their shape buckets (ragged lens,
+shuffled tables, wrapped rings, windows, bf16).  Tolerances are theirs:
+2e-5 in fp32 and 2e-2 in bf16 for attention, with the pools byte-equal
+outside the trash page; 1e-4 and 5e-2 for the RG-LRU scan (its oracle
+sums in another order: a log-depth scan against a sequential loop).
+``tests/test_torch_gpu.py`` holds the CUDA kernels to these plain
+versions on the card.
 """
 import functools
 
@@ -16,17 +19,29 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ops import decode_attention as pallas_decode
 from repro.kernels.ops import flash_attention as pallas_flash
+from repro.kernels.ops import paged_decode_attention as pallas_paged
 from repro.kernels.ops import paged_decode_step as pallas_step
+from repro.kernels.ops import rglru_scan as pallas_scan
+from repro.kernels.ref import decode_attention_ref as _jax_decode_ref
 from repro.kernels.ref import flash_attention_ref as _jax_flash_ref
+from repro.kernels.ref import paged_decode_attention_ref as _jax_paged_ref
 from repro.kernels.ref import paged_decode_step_ref as _jax_step_ref
-from repro_torch.kernels import flash_attention, paged_decode_step
+from repro.kernels.ref import rglru_scan_ref as jax_scan_ref
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 paged_decode_attention, paged_decode_step,
+                                 rglru_scan)
 
 # jitted as the fuzz harness jits them: one trace per bucket, not per case
 jax_step_ref = functools.partial(jax.jit, static_argnames=("window",))(
     _jax_step_ref)
 jax_flash_ref = functools.partial(
     jax.jit, static_argnames=("causal", "window"))(_jax_flash_ref)
+jax_paged_ref = functools.partial(jax.jit, static_argnames=("window",))(
+    _jax_paged_ref)
+jax_decode_ref = functools.partial(jax.jit, static_argnames=("window",))(
+    _jax_decode_ref)
 
 SEED = 20261016
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -199,3 +214,159 @@ def test_wrappers_reject_other_devices():
     t = torch.zeros((1, 2, 4, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rglru_scan(t[0], t[0], t[0, :, 0])
+    q = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        decode_attention(q, t, t, t[0, 0], t[0, 0, 0])
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        paged_decode_attention(q, t, t, t[0, 0], t[0, 0, 0])
+
+
+@pytest.mark.parametrize("bidx", range(len(PAGED_BUCKETS)))
+def test_paged_decode_attention_plain_matches_jax(bidx):
+    """Read-only paged attention over the fuzz buckets, with one row per
+    case forced to lens == 0 (the uniform-average edge): port plain vs the
+    JAX oracle AND the Pallas kernel (interpret mode)."""
+    bucket = PAGED_BUCKETS[bidx]
+    window = bucket[6]
+    for i in range(bidx * 2, bidx * 2 + 2):
+        arrs, table, lens, _, dt = _step_case(bucket, 100 + i)
+        lens[i % len(lens)] = 0
+        t, j = _torch(arrs, dt), _jax(arrs, dt)
+        out = paged_decode_attention(t["q"], t["k"], t["v"],
+                                     torch.from_numpy(table),
+                                     torch.from_numpy(lens), window=window)
+        jt, jl = jnp.asarray(table), jnp.asarray(lens)
+        ref = jax_paged_ref(j["q"], j["k"], j["v"], jt, jl, window=window)
+        pal = pallas_paged(j["q"], j["k"], j["v"], jt, jl, window=window,
+                           block_k=PAGED_BLOCK_KS[bidx])
+        for name, r in (("ref", ref), ("pallas", pal)):
+            np.testing.assert_allclose(
+                _np(out), _np(r), atol=_tol(dt), rtol=_tol(dt),
+                err_msg=f"{name} bucket={bucket} case={i} lens={lens}")
+
+
+# the fuzz harness's ring buckets: (B, H, KVH, W, dh, window, dtype)
+DECODE_BUCKETS = [
+    (2, 4, 2, 32, 32, None, "f32"),
+    (2, 4, 1, 64, 16, 24, "f32"),
+    (1, 8, 8, 32, 16, None, "bf16"),
+    (3, 2, 2, 64, 32, 16, "bf16"),
+    (2, 4, 2, 64, 16, None, "f32"),
+    (1, 2, 1, 32, 64, 8, "f32"),
+]
+
+
+def _ring_case(bucket, i):
+    """Per-row fills 1..2W (wrapped rings), as the fuzz harness draws."""
+    B, H, KVH, W, dh, window, dt = bucket
+    rng = np.random.default_rng([SEED, 3, i])
+    arrs = dict(q=rng.standard_normal((B, H, dh)),
+                k=rng.standard_normal((B, W, KVH, dh)),
+                v=rng.standard_normal((B, W, KVH, dh)))
+    spos = np.full((B, W), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    for b in range(B):
+        fill = int(np.clip(_ragged_len(rng, W, 2), 1, 2 * W))
+        for t in range(fill):
+            spos[b, t % W] = t
+        pos[b] = fill - 1
+    return arrs, spos, pos
+
+
+@pytest.mark.parametrize("bidx", range(len(DECODE_BUCKETS)))
+def test_decode_attention_plain_matches_jax(bidx):
+    bucket = DECODE_BUCKETS[bidx]
+    window, dt = bucket[5], bucket[6]
+    for i in range(bidx * 3, bidx * 3 + 3):
+        arrs, spos, pos = _ring_case(bucket, i)
+        t, j = _torch(arrs, dt), _jax(arrs, dt)
+        out = decode_attention(t["q"], t["k"], t["v"],
+                               torch.from_numpy(spos), torch.from_numpy(pos),
+                               window=window)
+        js, jpos = jnp.asarray(spos), jnp.asarray(pos)
+        ref = jax_decode_ref(j["q"], j["k"], j["v"], js, jpos, window=window)
+        pal = pallas_decode(j["q"], j["k"], j["v"], js, jpos, window=window)
+        for name, r in (("ref", ref), ("pallas", pal)):
+            np.testing.assert_allclose(
+                _np(out), _np(r), atol=_tol(dt), rtol=_tol(dt),
+                err_msg=f"{name} bucket={bucket} case={i} pos={pos}")
+
+
+def test_decode_attention_row_without_valid_slot_is_uniform_mean():
+    """A row whose every slot is masked (empty ring, or every stored
+    position past pos) gives the uniform mean of V over the W slots, in
+    the port's plain version and the JAX oracle alike; the CUDA kernel is
+    held to it in tests/test_torch_gpu.py."""
+    arrs, spos, pos = _ring_case(DECODE_BUCKETS[0], 7)
+    spos[0] = -1
+    spos[1] = pos[1] + 1 + np.arange(spos.shape[1])
+    t, j = _torch(arrs, "f32"), _jax(arrs, "f32")
+    out = decode_attention(t["q"], t["k"], t["v"], torch.from_numpy(spos),
+                           torch.from_numpy(pos))
+    ref = jax_decode_ref(j["q"], j["k"], j["v"], jnp.asarray(spos),
+                         jnp.asarray(pos))
+    g = t["q"].shape[1] // t["k"].shape[2]
+    want = t["k"].new_zeros(t["q"].shape)
+    want[:] = t["v"].mean(dim=1).repeat_interleave(g, dim=1)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+# tests/test_kernels.py's sweep: (B, S, d, bt)
+SCAN_SWEEP = [(2, 512, 256, 256), (1, 1024, 128, 128), (3, 256, 384, 64),
+              (1, 64, 128, 64)]
+
+
+def _scan_inputs(B, S, d, seed):
+    rng = np.random.default_rng([SEED, 5, seed])
+    return (rng.uniform(0.7, 0.999, (B, S, d)),
+            rng.standard_normal((B, S, d)) * 0.1,
+            rng.standard_normal((B, d)))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sidx", range(len(SCAN_SWEEP)))
+def test_rglru_scan_plain_matches_jax(sidx, dt):
+    """Plain scan vs the JAX oracle and the Pallas kernel (interpret mode,
+    the sweep's time block): h in a's dtype, carry fp32."""
+    B, S, d, bt = SCAN_SWEEP[sidx]
+    a, b, h0 = _scan_inputs(B, S, d, sidx)
+    jdt, tdt = DTYPES[dt]
+    ta = torch.tensor(a, dtype=torch.float32).to(tdt)
+    tb = torch.tensor(b, dtype=torch.float32).to(tdt)
+    out = rglru_scan(ta, tb, torch.tensor(h0, dtype=torch.float32))
+    assert out.dtype == tdt and out.shape == (B, S, d)
+    ja, jb = jnp.asarray(a, jdt), jnp.asarray(b, jdt)
+    jh0 = jnp.asarray(h0, jnp.float32)
+    ref = jax_scan_ref(ja.astype(jnp.float32), jb.astype(jnp.float32), jh0)
+    pal = pallas_scan(ja, jb, jh0, bt=bt)
+    tol = 5e-2 if dt == "bf16" else 1e-4
+    for name, r in (("ref", ref), ("pallas", pal)):
+        np.testing.assert_allclose(_np(out), _np(r), atol=tol, rtol=tol,
+                                   err_msg=f"{name} {SCAN_SWEEP[sidx]} {dt}")
+
+
+@pytest.mark.parametrize("S", [1, 17, 100, 257])
+def test_rglru_scan_plain_ragged_lengths(S):
+    """Prefill runs any prompt length: the port takes S that no time block
+    divides (the Pallas kernel asserts S % bt == 0)."""
+    a, b, h0 = _scan_inputs(2, S, 96, S)
+    out = rglru_scan(torch.tensor(a, dtype=torch.float32),
+                     torch.tensor(b, dtype=torch.float32),
+                     torch.tensor(h0, dtype=torch.float32))
+    ref = jax_scan_ref(jnp.asarray(a, jnp.float32),
+                       jnp.asarray(b, jnp.float32),
+                       jnp.asarray(h0, jnp.float32))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_plain_head_dim_256(window):
+    """RecurrentGemma's prefill shape family: MQA at dh 256, ragged S."""
+    arrs = _flash_inputs(1, 4, 1, 70, 256, 256)
+    t, j = _torch(arrs, "f32"), _jax(arrs, "f32")
+    out = flash_attention(t["q"], t["k"], t["v"], causal=True, window=window)
+    ref = jax_flash_ref(j["q"], j["k"], j["v"], causal=True, window=window)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)

@@ -1,15 +1,20 @@
-"""The port's dense model against the JAX package on the same weights.
+"""The port's model against the JAX package on the same weights.
 
 The JAX parameters go through ``repro_torch.bridge`` (numpy in between);
-then prefill ``forward`` (logits and per-layer K/V) and the paged
-``decode_step`` of both packages run on the same tokens, the same page
-table (shuffled page ids, a FREE row) and teacher-forced inputs.  Three
-reduced dense archs cover the layer variants: qwen2.5-3b (RMS norm, GQA,
-QKV bias, tied embeddings), stablelm-1.6b (LayerNorm, 25% rotary, MHA) and
-starcoder2-3b (sliding window, gelu, MLP bias).  fp32; the two packages
-sum in different orders, so logits and K/V agree within 1e-4.
+then prefill ``forward`` (logits and per-layer K/V or RG-LRU state) and
+the paged and striped ``decode_step`` of both packages run on the same
+tokens, the same page table (shuffled page ids, a FREE row) and
+teacher-forced inputs.  Three reduced dense archs cover the layer
+variants: qwen2.5-3b (RMS norm, GQA, QKV bias, tied embeddings),
+stablelm-1.6b (LayerNorm, 25% rotary, MHA) and starcoder2-3b (sliding
+window, gelu, MLP bias); reduced recurrentgemma-2b at five layers runs one
+(rec, rec, attn) pattern repetition and the two-layer rec remainder, MQA,
+the embedding scale and a 64-token attention window.  fp32; the two
+packages sum in different orders, so logits, K/V and state agree within
+1e-4.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +23,8 @@ import pytest
 import torch
 
 from repro.configs import get_config, reduced
-from repro.models import (decode_step, forward, init_paged_cache,
+from repro.models import (batch_axes, cache_gather, cache_scatter,
+                          decode_step, forward, init_cache, init_paged_cache,
                           init_params, paged_prefill_scatter)
 from repro_torch import configs as pconfigs
 from repro_torch import models as pm
@@ -31,18 +37,34 @@ LENS = [9, 14]                 # prompt lengths of the two live slots
 STEPS = 3
 
 
+HYBRID = "recurrentgemma-2b"
+HYBRID_LAYERS = 5              # one (rec, rec, attn) rep + 2 rec remainder
+
+
 def _cfgs(arch):
-    cfg = reduced(get_config(arch), d_model=64)
-    pcfg = pconfigs.reduced(pconfigs.get_config(arch), d_model=64)
+    n_layers = HYBRID_LAYERS if arch == HYBRID else None
+    cfg = reduced(get_config(arch), d_model=64, n_layers=n_layers)
+    pcfg = pconfigs.reduced(pconfigs.get_config(arch), d_model=64,
+                            n_layers=n_layers)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(pcfg)
     return cfg, pcfg
 
 
-def _pair(arch):
+def _pair(arch, **bridge_kw):
     cfg, pcfg = _cfgs(arch)
     jp = init_params(cfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(pcfg, jax.device_get(jp), device="cpu")
+    tp = params_from_jax(pcfg, jax.device_get(jp), device="cpu", **bridge_kw)
     return cfg, pcfg, jp, tp
+
+
+def _jax_layer(cache, cfg, i):
+    """Layer ``i``'s entry of a JAX cache (trunk leaves carry the pattern
+    repetition on axis 0; the remainder layers follow the trunk)."""
+    n_trunk = cfg.n_pattern_reps * cfg.pattern_len
+    if i >= n_trunk:
+        return cache["rem"][i - n_trunk]
+    return jax.tree.map(lambda a: a[i // cfg.pattern_len],
+                        cache["trunk"][i % cfg.pattern_len])
 
 
 def _np(x):
@@ -126,12 +148,12 @@ def test_paged_decode_matches_jax(arch, impl):
         tc["pages"] = torch.from_numpy(table)
         for slot, pr in enumerate(prompts):
             o = pm.forward(pcfg, tp, {"tokens": torch.from_numpy(pr)},
-                           build_cache=True, attn_impl=port_impl)
+                           build_cache=True, kernel_impl=port_impl)
             pm.paged_prefill_scatter(pcfg, tc, o["kv"], slot,
                                      tc["pages"][slot])
         for t in range(STEPS):
             lg, tc = pm.decode_step(pcfg, tp, tc, torch.from_numpy(feed[t]),
-                                    tc["pos"], attn_impl=port_impl)
+                                    tc["pos"], kernel_impl=port_impl)
             # the FREE row's logits are never read (its all-masked XLA
             # softmax and the fused kernel's new-token-only softmax differ
             # within the JAX package too): compare the live rows
@@ -148,8 +170,176 @@ def test_paged_decode_matches_jax(arch, impl):
                     atol=TOL, rtol=TOL)
 
 
-def test_other_families_raise():
-    pcfg = pconfigs.reduced(pconfigs.get_config("recurrentgemma-2b"),
-                            d_model=64)
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "qwen2-moe-a2.7b"])
+def test_other_families_raise(arch):
+    pcfg = pconfigs.reduced(pconfigs.get_config(arch), d_model=64)
     with pytest.raises(NotImplementedError):
         pm.init_params(pcfg, device="cpu")
+
+
+# ------------------------------------------------------------ hybrid family
+def test_bridge_keeps_lam_fp32_under_bf16():
+    cfg, pcfg, jp, tp = _pair(HYBRID, dtype=torch.bfloat16)
+    mixers = [e.split(":")[0] for e in
+              (cfg.layer_pattern[i % cfg.pattern_len]
+               for i in range(cfg.n_layers))]
+    assert mixers == ["rec", "rec", "attn", "rec", "rec"]
+    for i, (lp, mixer) in enumerate(zip(tp["layers"], mixers)):
+        if mixer != "rec":
+            assert lp["attn"]["wq"].dtype == torch.bfloat16
+            continue
+        assert lp["rec"]["lam"].dtype == torch.float32
+        assert lp["rec"]["w_x"].dtype == torch.bfloat16
+        want = np.asarray(_jax_layer(jp, cfg, i)["rec"]["lam"])
+        np.testing.assert_array_equal(lp["rec"]["lam"].numpy(), want)
+    native = pm.init_params(pcfg, device="cpu", dtype=torch.bfloat16)
+    assert native["layers"][0]["rec"]["lam"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_hybrid_forward_matches_jax(impl):
+    """80-token prompts, past the 64-token window: logits, every rec
+    layer's final state and the attention layer's ring (the last 64
+    tokens at their ring slots)."""
+    cfg, pcfg, jp, tp = _pair(HYBRID)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 80))
+    out = forward(cfg, jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                  build_cache=True, cache_len=96)
+    pout = pm.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                      build_cache=True, kernel_impl=impl)
+    np.testing.assert_allclose(_np(pout["logits"]), _np(out["logits"]),
+                               atol=TOL, rtol=TOL)
+    last = pm.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                      last_only=True, kernel_impl=impl)["logits"]
+    np.testing.assert_allclose(_np(last), _np(out["logits"])[:, -1:],
+                               atol=TOL, rtol=TOL)
+    ring = pm.cache_from_prefill(pcfg, pout["kv"], 96)
+    assert ring["pos"].tolist() == np.asarray(out["cache"]["pos"]).tolist()
+    for i in range(cfg.n_layers):
+        want = _jax_layer(out["cache"], cfg, i)
+        got = ring["layers"][i]
+        assert sorted(got) == sorted(want)
+        for name in want:
+            np.testing.assert_allclose(_np(got[name]), _np(want[name]),
+                                       atol=TOL, rtol=TOL,
+                                       err_msg=f"layer {i} {name}")
+
+
+@pytest.mark.parametrize("arch", [HYBRID, "qwen2.5-3b"])
+def test_striped_decode_past_window_matches_jax(arch):
+    """Teacher-forced striped decode from a prefill cache, 20 steps past
+    the ring's first wrap (hybrid: window 64; qwen2.5-3b: a linear cache),
+    mirroring tests/test_decode_equivalence.py: logits of every step and
+    the final caches agree with JAX, for both port paths."""
+    cfg, pcfg, jp, tp = _pair(arch)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 50))
+    feed = rng.integers(0, cfg.vocab_size, (20, 2))
+    max_len = 72
+    out = forward(cfg, jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                  build_cache=True, cache_len=max_len)
+    jc, jlog = out["cache"], []
+    step = jax.jit(functools.partial(decode_step, cfg))
+    for t in range(len(feed)):
+        lg, jc = step(jp, jc, jnp.asarray(feed[t], jnp.int32), jc["pos"])
+        jlog.append(_np(lg))
+    for impl in ("kernel", "plain"):
+        o = pm.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                       build_cache=True, kernel_impl=impl)
+        tc = pm.cache_from_prefill(pcfg, o["kv"], max_len)
+        for t in range(len(feed)):
+            lg, tc = pm.decode_step(pcfg, tp, tc, torch.from_numpy(feed[t]),
+                                    tc["pos"], kernel_impl=impl)
+            np.testing.assert_allclose(_np(lg), jlog[t], atol=TOL, rtol=TOL,
+                                       err_msg=f"{impl} step {t}")
+        assert tc["pos"].tolist() == np.asarray(jc["pos"]).tolist()
+        for i in range(cfg.n_layers):
+            want = _jax_layer(jc, cfg, i)
+            for name in want:
+                np.testing.assert_allclose(
+                    _np(tc["layers"][i][name]), _np(want[name]), atol=TOL,
+                    rtol=TOL, err_msg=f"{impl} layer {i} {name}")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID])
+def test_cache_scatter_gather_match_jax(arch):
+    """A batch-1 striped prefill cache scattered into slot 1 of a 3-slot
+    pool, then gathered back, in both packages: the pools agree leaf by
+    leaf (slots 0 and 2 still empty) and so do the gathered caches."""
+    cfg, pcfg, jp, tp = _pair(arch)
+    max_len = 72
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 50))
+    out = forward(cfg, jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                  build_cache=True, cache_len=max_len)
+    axes = batch_axes(init_cache(cfg, 3, max_len),
+                      init_cache(cfg, 1, max_len))
+    jpool = cache_scatter(init_cache(cfg, 3, max_len), out["cache"], 1, axes)
+    jback = cache_gather(jpool, 1, axes)
+    o = pm.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                   build_cache=True)
+    tpool = pm.cache_scatter(pm.init_cache(pcfg, 3, max_len, device="cpu"),
+                             pm.cache_from_prefill(pcfg, o["kv"], max_len), 1)
+    tback = pm.cache_gather(tpool, 1)
+    for got, want in ((tpool, jpool), (tback, jback)):
+        assert got["pos"].tolist() == np.asarray(want["pos"]).tolist()
+        for i in range(cfg.n_layers):
+            jl = _jax_layer(want, cfg, i)
+            assert sorted(got["layers"][i]) == sorted(jl)
+            for name in jl:
+                np.testing.assert_allclose(
+                    _np(got["layers"][i][name]), _np(jl[name]), atol=TOL,
+                    rtol=TOL, err_msg=f"layer {i} {name}")
+
+
+def test_hybrid_paged_decode_matches_jax():
+    """Two slots prefilled into shuffled pages (one prompt past the
+    window: JAX scatters its 64-entry ring, the port every token, which
+    decode masks), a FREE third row, teacher-forced ticks past the
+    window: live rows' logits and the rec state agree with JAX."""
+    cfg, pcfg, jp, tp = _pair(HYBRID)
+    ps, mp, lens, n_slots = 4, 24, [70, 30], 3
+    n_pages = len(lens) * mp
+    rng = np.random.default_rng(5)
+    ids = list(rng.permutation(n_pages))
+    table = np.full((n_slots, mp), -1, np.int32)
+    for b in range(len(lens)):
+        table[b] = [ids.pop() for _ in range(mp)]
+    prompts = [rng.integers(0, cfg.vocab_size, (1, n)) for n in lens]
+    feed = rng.integers(0, cfg.vocab_size, (8, n_slots))
+
+    jc = init_paged_cache(cfg, n_slots, page_size=ps, n_pages=n_pages,
+                          max_pages=mp)
+    jc["pages"] = jnp.asarray(table)
+    for slot, pr in enumerate(prompts):
+        o = forward(cfg, jp, {"tokens": jnp.asarray(pr, jnp.int32)},
+                    build_cache=True, cache_len=mp * ps)
+        jc = paged_prefill_scatter(cfg, jc, o["cache"], slot,
+                                   jc["pages"][slot], n_tokens=pr.shape[1])
+    jlog = []
+    step = jax.jit(functools.partial(decode_step, cfg))
+    for t in range(len(feed)):
+        lg, jc = step(jp, jc, jnp.asarray(feed[t], jnp.int32), jc["pos"])
+        jlog.append(_np(lg))
+
+    for impl in ("kernel", "plain"):
+        tc = pm.init_paged_cache(pcfg, n_slots, page_size=ps,
+                                 n_pages=n_pages, max_pages=mp, device="cpu")
+        tc["pages"] = torch.from_numpy(table)
+        for slot, pr in enumerate(prompts):
+            o = pm.forward(pcfg, tp, {"tokens": torch.from_numpy(pr)},
+                           build_cache=True, kernel_impl=impl)
+            pm.paged_prefill_scatter(pcfg, tc, o["kv"], slot,
+                                     tc["pages"][slot])
+        for t in range(len(feed)):
+            lg, tc = pm.decode_step(pcfg, tp, tc, torch.from_numpy(feed[t]),
+                                    tc["pos"], kernel_impl=impl)
+            live = len(lens)
+            np.testing.assert_allclose(_np(lg)[:live], jlog[t][:live],
+                                       atol=TOL, rtol=TOL,
+                                       err_msg=f"{impl} step {t}")
+        for i in (0, 1, 3, 4):                         # the rec layers
+            want = _jax_layer(jc, cfg, i)
+            for name in ("h", "conv"):
+                np.testing.assert_allclose(
+                    _np(tc["layers"][i][name])[:live],
+                    _np(want[name])[:live], atol=TOL, rtol=TOL)
