@@ -30,7 +30,16 @@ Phases (any failure exits non-zero, with no result line):
      tokens, a decode crosses 2048) and the paged engine, with the
      launches of all three kernels on the path asserted per path;
   6. the same three paths in fp32 on a few requests, each token held to
-     the plain teacher-forced argmax (plain attention AND plain scan).
+     the plain teacher-forced argmax (plain attention AND plain scan);
+  7. serve full-width xlstm-1.3b (48 layers: 42 mLSTM blocks with head
+     dim 1024 and 6 sLSTM blocks, d_model 2048, no attention layer,
+     random bf16 weights) through ``InferenceEngine`` (4 x 1024-token
+     prompts), then the paged (a page table, no pools) and the striped
+     engine on one 12-request trace, which must give the same tokens;
+     mlstm_chunkwise launches == 42 x prefills on every path, no attention
+     kernel launches;
+  8. the same three paths in fp32 on a few requests, each token held to
+     the plain teacher-forced argmax (plain mLSTM chunk loop).
 Each path is driven with every launch count set to 0 just before it and
 read just after.  The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
@@ -50,9 +59,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernel_fuzz.py
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
+MLSTM_TOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py
 MARGIN = 1e-3                  # top-2 logit margin for the fp32 check
 N_LAYERS = 36                  # qwen2.5-3b: every layer is attention
 HYBRID_ATTN, HYBRID_REC = 8, 18   # recurrentgemma-2b's 26 layers
+SSM_MLSTM, SSM_SLSTM = 42, 6      # xlstm-1.3b's 48 layers
 PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
 
 
@@ -91,19 +102,40 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 # ------------------------------------------------------------ phase 2
 class ErrLog:
-    """Largest |kernel - plain| seen per kernel and dtype."""
+    """Largest |kernel - plain| seen per kernel and dtype, and the largest
+    share of the tolerance used, |kernel - plain| / (tol + tol |plain|)."""
 
     def __init__(self):
         self.err = {}
+        self.used = {}
 
     def check(self, name, dtype, out, ref, what, tol=None):
         import torch
         tol = tol if tol is not None else TOL[dtype]
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol, msg=lambda m: f"{what}: {m}")
-        e = (out.float() - ref.float()).abs().max().item()
+        d = (out.float() - ref.float()).abs()
         key = (name, dtype)
-        self.err[key] = max(self.err.get(key, 0.0), e)
+        self.err[key] = max(self.err.get(key, 0.0), d.max().item())
+        used = (d / (tol + tol * ref.float().abs())).max().item()
+        self.used[key] = max(self.used.get(key, 0.0), used)
+
+    def check_scaled(self, name, dtype, out, ref, scale, what, tol):
+        """|out - ref| <= tol (1 + scale) elementwise: ``scale`` is each
+        output's conditioning (``ref.mlstm_parallel_f64``).  Logged under
+        the key (name, dtype + " conditioned")."""
+        import torch
+        d = (out.double() - ref.double()).abs()
+        share = d / (tol * (1.0 + scale))
+        if not torch.isfinite(out.float()).all() or share.max().item() > 1.0:
+            bad = int((share > 1.0).sum().item())
+            raise AssertionError(
+                f"{what}: {bad} of {share.numel()} elements beyond "
+                f"{tol} (1 + scale); max |out - ref| {d.max().item():.4g}, "
+                f"largest share {share.max().item():.4g}")
+        key = (name, dtype + " conditioned")
+        self.err[key] = max(self.err.get(key, 0.0), d.max().item())
+        self.used[key] = max(self.used.get(key, 0.0), share.max().item())
 
 
 def _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free=()):
@@ -324,6 +356,115 @@ def check_scan(errs, dtype_name):
         errs.check("rglru_scan", dtype_name, out, ref,
                    f"rglru_scan {dtype_name} B={B} S={S} d={d}",
                    tol=SCAN_TOL[dtype_name])
+
+
+def _mlstm_inputs(gen, B, H, S, dh, gates, dtype):
+    """q, k (scaled by 1/sqrt(dh)), v in ``dtype``; fp32 gate
+    pre-activations: "normal" (forget bias +3), "big_i" (input gate up to
+    ~40: the stabiliser at work) or "forget" (forget gate near -30: the
+    state forgets every token)."""
+    import torch
+    f = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    q, k, v = f(B, H, S, dh), f(B, H, S, dh) / math.sqrt(dh), f(B, H, S, dh)
+    i_pre, f_pre = f(B, H, S), f(B, H, S) + 3.0
+    if gates == "big_i":
+        i_pre = i_pre * 10.0 + 20.0
+    elif gates == "forget":
+        f_pre = f_pre - 33.0
+    return q.to(dtype), k.to(dtype), v.to(dtype), i_pre, f_pre
+
+
+def check_mlstm(errs, dtype_name):
+    """Chunkwise mLSTM, h and the final (C, n, m), at xlstm-1.3b's prefill
+    shapes (H=4, dh=1024: B 1 and 4 at S 1024 as the engines give it; S =
+    1, below the 64-token chunk, a chunk multiple, ragged) and at dh 64
+    and 256 with B*H > 1, over normal and extreme gates.  h takes the
+    dtype's tolerance; C, n and m are fp32 from the same inputs on both
+    sides and take the fp32 one in either dtype."""
+    import torch
+    from repro_torch.kernels import mlstm_chunkwise
+    from repro_torch.kernels.ref import (mlstm_chunkwise_ref,
+                                         mlstm_parallel_f64)
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases = [(1, 4, S, 1024, g) for S, g in ((1, "normal"), (37, "normal"),
+                                             (128, "big_i"), (1000, "normal"),
+                                             (200, "forget"),
+                                             (1024, "normal"))]
+    cases += [(4, 4, 1024, 1024, "normal"), (2, 4, 130, 1024, "normal"),
+              (2, 3, 129, 256, "normal"), (1, 8, 1024, 256, "normal"),
+              (4, 2, 64, 64, "big_i"), (3, 2, 333, 64, "forget")]
+    state_tol = MLSTM_TOL["float32"]
+    for B, H, S, dh, gates in cases:
+        args = _mlstm_inputs(gen, B, H, S, dh, gates, dtype)
+        h, state = mlstm_chunkwise(*args)
+        hr, state_r = mlstm_chunkwise_ref(*args)
+        torch.cuda.synchronize()
+        what = f"mlstm_chunkwise {dtype_name} B={B} H={H} S={S} dh={dh} {gates}"
+        errs.check("mlstm_chunkwise", dtype_name, h, hr, f"{what} h",
+                   tol=MLSTM_TOL[dtype_name])
+        for name, a, b in zip(("C", "n", "m"), state, state_r):
+            errs.check("mlstm_chunkwise", dtype_name, a, b, f"{what} {name}",
+                       tol=state_tol)
+        del args, h, state, hr, state_r
+    # A large input gate over a long prompt leaves e^{-m} no floor under the
+    # normaliser: rows whose |q.n + sum w| cancels far below its terms are
+    # ill-conditioned, and any two summation orders disagree there by far
+    # more than the plain tolerance.  C, n and m never pass through that
+    # normaliser and take the fp32 tolerance against the plain loop; h is
+    # held to the fp64 parallel form within tol (1 + scale), scale being
+    # each output's conditioning.  The plain fp32 loop's share of the same
+    # bound is printed beside the kernel's.
+    B, H, S, dh = 1, 8, 1024, 256
+    args = _mlstm_inputs(gen, B, H, S, dh, "big_i", dtype)
+    h, state = mlstm_chunkwise(*args)
+    hr, state_r = mlstm_chunkwise_ref(*args)
+    h64, scale, _ = mlstm_parallel_f64(*args)
+    torch.cuda.synchronize()
+    what = f"mlstm_chunkwise {dtype_name} B={B} H={H} S={S} dh={dh} big_i"
+    for name, a, b in zip(("C", "n", "m"), state, state_r):
+        errs.check("mlstm_chunkwise", dtype_name, a, b, f"{what} {name}",
+                   tol=state_tol)
+    tol = MLSTM_TOL[dtype_name]
+    errs.check_scaled("mlstm_chunkwise", dtype_name, h, h64, scale,
+                      f"{what} h (conditioned)", tol)
+    share = lambda x: ((x.double() - h64).abs()  # noqa: E731
+                       / (tol * (1.0 + scale))).max().item()
+    log(f"[kernels] {what} (ill-conditioned normaliser, max scale "
+        f"{scale.max().item():.4g}): share of tol (1 + scale) used by the "
+        f"kernel {share(h):.4g}, by the plain loop {share(hr):.4g}; largest "
+        f"share of tol (1 + |h|) used by the kernel "
+        f"{((h.double() - h64).abs() / (tol * (1 + h64.abs()))).max().item():.4g}"
+        f", by the plain loop "
+        f"{((hr.double() - h64).abs() / (tol * (1 + h64.abs()))).max().item():.4g}")
+
+
+def time_mlstm():
+    """One mLSTM layer's prefill at the serving shape: B=1, H=4, a
+    1024-token prompt, dh=1024, bf16.  The bound counts the two dh x dh
+    products per token (q C and the state update), the causal q k^T and
+    w v products inside each 64-token chunk and the n terms, at the bf16
+    peak; and each input, h and the final state once in memory."""
+    import torch
+    from repro_torch.kernels import mlstm_chunkwise
+    from repro_torch.kernels.ref import MLSTM_CHUNK, mlstm_chunkwise_ref
+    B, H, S, dh = 1, 4, 1024, 1024
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    args = _mlstm_inputs(gen, B, H, S, dh, "normal", torch.bfloat16)
+    ms = time_ms(lambda: mlstm_chunkwise(*args), iters=10)
+    plain = time_ms(lambda: mlstm_chunkwise_ref(*args), iters=5)
+    BH = B * H
+    pairs = sum(n * (n + 1) // 2 for n in
+                (min(MLSTM_CHUNK, S - t) for t in range(0, S, MLSTM_CHUNK)))
+    flops = BH * (4 * S * dh * dh + 4 * pairs * dh + 4 * S * dh)
+    n_bytes = (BH * S * dh * 2 * 4 + BH * S * 4 * 2
+               + BH * (dh * dh + dh + 1) * 4)
+    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None,
+            "shape": "B=1 H=4 S=1024 dh=1024 bf16, fresh state (library: "
+                     "none, no single PyTorch call computes the chunkwise "
+                     "mLSTM recurrence)"}
 
 
 def time_paged_step():
@@ -666,16 +807,18 @@ def serve_striped_dense(cfg, params, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_ticks(eng, vocab: int, seed: int, label: str) -> None:
-    """Where a serving tick's time goes: a short burst (8 requests, 256
-    prompt tokens, 24 new) under torch.profiler after the measured run;
-    prints device-busy share of the wall time and the top kernels."""
+def profile_ticks(eng, vocab: int, seed: int, label: str,
+                  prompt: int = 256) -> None:
+    """Where a serving tick's time goes: a short burst (8 requests,
+    ``prompt`` prompt tokens, 24 new) under torch.profiler after the
+    measured run; prints device-busy share of the wall time and the top
+    kernels."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed + 7)
     for i in range(8):
-        eng.submit(list(map(int, rng.integers(0, vocab, 256))), 24,
+        eng.submit(list(map(int, rng.integers(0, vocab, prompt))), 24,
                    req_id=1000 + i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -694,7 +837,8 @@ def profile_ticks(eng, vocab: int, seed: int, label: str) -> None:
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and dev(e) > 0]
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"[profile] {label} 8 requests x (256 prompt, 24 new): {ticks} decode "
+    log(f"[profile] {label} 8 requests x ({prompt} prompt, 24 new): {ticks} "
+        f"decode "
         f"ticks, wall {wall:.4f} s, device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for t, key, count in sorted(rows, reverse=True)[:10]:
@@ -735,9 +879,10 @@ def teacher_forced(cfg, params, prompt, gen, what: str, layout: str):
                                  max_pages=npg, device="cuda")
         cache["pages"] = torch.arange(npg, dtype=torch.int32,
                                       device="cuda")[None]
-        paged_prefill_scatter(cfg, cache, o["kv"], 0, cache["pages"][0])
+        paged_prefill_scatter(cfg, cache, o["kv"], 0, cache["pages"][0],
+                              len(prompt))
     else:
-        cache = cache_from_prefill(cfg, o["kv"], total)
+        cache = cache_from_prefill(cfg, o["kv"], total, len(prompt))
     logits = o["logits"][0, -1]
     checked = skipped = 0
     for j, got in enumerate(gen):
@@ -925,6 +1070,163 @@ def check_hybrid_fp32(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 7
+def ssm_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-1.3b")
+    mixers = [cfg.layer_pattern[i % cfg.pattern_len].split(":")[0]
+              for i in range(cfg.n_layers)]
+    assert (cfg.d_model, cfg.n_layers, cfg.d_inner // cfg.n_heads) == \
+        (2048, 48, 1024)
+    assert mixers.count("mlstm") == SSM_MLSTM
+    assert mixers.count("slstm") == SSM_SLSTM
+    return cfg
+
+
+def ssm_trace(vocab: int, seed: int):
+    """12 requests, prompts of 64..1024 tokens (ten of them not a multiple
+    of the kernel's 64-token chunk), 32..128 new tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 30)
+    lens_new = [(1024, 32), (64, 128), (1000, 48), (333, 96), (777, 64),
+                (129, 128), (900, 40), (500, 112), (65, 32), (1023, 80),
+                (250, 56), (611, 100)]
+    return [(list(map(int, rng.integers(0, vocab, n))), m)
+            for n, m in lens_new]
+
+
+def serve_ssm(seed: int) -> None:
+    """Full-width xlstm-1.3b in bf16 on the three paths in turn: the
+    kernel's launches asserted per path, no attention kernel launched, and
+    the paged and striped engines give the same tokens."""
+    import torch
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
+    cfg = ssm_config()
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] xlstm-1.3b full width: {n_params / 1e9:.3f}B params "
+        f"(config param_count {cfg.param_count() / 1e9:.3f}B), bf16")
+
+    eng = InferenceEngine(cfg, params)
+    batch = make_batch(cfg, 4, 1024, seed=seed + 31, device="cuda")
+    out, wall, counts = drive("xlstm-1.3b static",
+                              lambda: eng.generate(batch, 32))
+    if out.shape != (4, 32) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"static engine output {tuple(out.shape)}")
+    expect("xlstm-1.3b static", counts, {"mlstm_chunkwise": SSM_MLSTM})
+    log(f"[serve] xlstm-1.3b InferenceEngine: 4 x (1024 prompt, 32 new) = "
+        f"128 tokens in {wall:.3f} s = {128 / wall:.1f} tok/s (wall time "
+        f"incl. prefill); launches {counts}")
+    del eng, batch, out
+    torch.cuda.empty_cache()
+
+    trace = ssm_trace(cfg.vocab_size, seed)
+    tokens = {}
+    for paged in (True, False):
+        path = f"xlstm-1.3b {'paged' if paged else 'striped'}"
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=1152,
+                                       page_size=16, paged=paged)
+        for i, (p, n) in enumerate(trace):
+            eng.submit(p, n, req_id=i)
+        out, wall, counts = drive(path, eng.run)
+        s = eng.stats
+        check_lengths(path, out, trace, cfg.vocab_size)
+        expect(path, counts, {"mlstm_chunkwise": SSM_MLSTM * s["prefills"]})
+        if eng.prefix_sharing or s["prefills"] != len(trace):
+            raise AssertionError(f"{path}: prefix sharing on or a prompt "
+                                 f"not prefilled once ({s})")
+        if paged and any("k" in e for e in eng.cache["layers"]):
+            raise AssertionError(f"{path}: the cache holds K/V pools")
+        tokens[path] = out
+        tick = decode_tick_ms(cfg, params, eng.cache)
+        gen_tok = sum(len(v) for v in out.values())
+        log(f"[serve] {path}: {len(trace)} requests, {gen_tok} tokens in "
+            f"{wall:.3f} s = {gen_tok / wall:.1f} tok/s (wall time incl. "
+            f"prefill); decode_ticks={s['decode_ticks']} "
+            f"({1e3 * wall / max(s['decode_ticks'], 1):.2f} ms of wall "
+            f"time per tick) decode_tokens={s['decode_tokens']} "
+            f"prefills={s['prefills']}; launches {counts}; a decode tick "
+            f"of all 8 slots alone: {tick:.2f} ms")
+        if paged:
+            # 64-token prompts: the sLSTM prefill loop launches ~150
+            # kernels a token, and a longer burst's trace takes minutes
+            # to summarise
+            profile_ticks(eng, cfg.vocab_size, seed, "xlstm-1.3b paged",
+                          prompt=64)
+        del eng, out
+        torch.cuda.empty_cache()
+    if tokens["xlstm-1.3b paged"] != tokens["xlstm-1.3b striped"]:
+        raise AssertionError("xlstm-1.3b: the paged and striped engines "
+                             "gave different tokens")
+    log("[serve] xlstm-1.3b paged and striped engines: the same tokens for "
+        "all 12 requests")
+    del params
+    torch.cuda.empty_cache()
+
+
+def decode_tick_ms(cfg, params, cache, n: int = 10) -> float:
+    """Host-clock ms of one pooled ``decode_step`` over every slot of an
+    engine's cache, after its run (every slot FREE; a later prefill
+    overwrites a slot's whole state), averaged over ``n`` steps."""
+    import torch
+    from repro_torch.models import decode_step
+    tok = torch.zeros(cache["pos"].shape, dtype=torch.int64, device="cuda")
+    decode_step(cfg, params, cache, tok, cache["pos"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        decode_step(cfg, params, cache, tok, cache["pos"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+# ------------------------------------------------------------ phase 8
+def check_ssm_fp32(seed: int) -> None:
+    """xlstm-1.3b in fp32 on the static, striped and paged paths: three
+    300-token prompts (one static batch), and on the continuous engines a
+    ragged 777-token prompt too; every token is held to the plain
+    teacher-forced argmax (the plain mLSTM chunk loop) on the striped
+    cache."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ssm_config()
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(seed + 32)
+    tok = lambda n: list(map(int, rng.integers(0, cfg.vocab_size, n)))
+    short = [tok(300) for _ in range(3)]
+    trace = [(p, 24) for p in short] + [(tok(777), 24)]
+    gen = {"static": dict(enumerate(InferenceEngine(cfg, params).generate(
+        {"tokens": torch.tensor(short, device="cuda")}, 24).tolist()))}
+    for paged in (False, True):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=832,
+                                       page_size=16, paged=paged)
+        for i, (p, n) in enumerate(trace):
+            eng.submit(p, n, req_id=i)
+        gen["paged" if paged else "striped"] = eng.run()
+        del eng
+    checked = skipped = 0
+    for path, outs in gen.items():
+        for i, toks in outs.items():
+            c, k = teacher_forced(cfg, params, trace[i][0], toks,
+                                  f"xlstm-1.3b {path} request {i}",
+                                  "striped")
+            checked, skipped = checked + c, skipped + k
+    if checked < (checked + skipped) // 2:
+        raise AssertionError(f"only {checked} tokens cleared the margin")
+    log(f"[fp32] xlstm-1.3b full width fp32: static (3 requests), striped "
+        f"and paged (4 requests each, one a ragged 777-token prompt): "
+        f"{checked} engine tokens equal the plain teacher-forced argmax "
+        f"(plain mLSTM chunk loop), {skipped} skipped (top-2 margin <= "
+        f"{MARGIN})")
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -961,13 +1263,17 @@ def main() -> int:
         check_paged_attention(errs, dt)
         check_decode(errs, dt)
         check_scan(errs, dt)
-    log(f"[kernels] all cases within tolerance; max |kernel - plain|: "
-        + ", ".join(f"{n} {d} {e:.3g}" for (n, d), e in errs.err.items()))
+        check_mlstm(errs, dt)
+    log(f"[kernels] all cases within tolerance; max |kernel - plain| "
+        f"(largest share of the tolerance used): "
+        + ", ".join(f"{n} {d} {e:.3g} ({errs.used[(n, d)]:.3g})"
+                    for (n, d), e in errs.err.items()))
     timing = {"paged_decode_step": time_paged_step(),
               "flash_attention": time_flash(),
               "paged_decode_attention": time_paged_attention(),
               "decode_attention": time_decode(),
-              "rglru_scan": time_scan()}
+              "rglru_scan": time_scan(),
+              "mlstm_chunkwise": time_mlstm()}
     for name, t in timing.items():
         for tag, tt in ((name, t), (f"{name} dh256", t.get("dh256"))):
             if tt:
@@ -990,6 +1296,12 @@ def main() -> int:
     check_hybrid_fp32(args.seed)
     log(f"[phase] 6 (recurrentgemma-2b fp32) in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_ssm(args.seed)
+    log(f"[phase] 7 (xlstm-1.3b serving) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_ssm_fp32(args.seed)
+    log(f"[phase] 8 (xlstm-1.3b fp32) in {time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"paged_decode_step": (csrc + "paged_decode_step.cu",
@@ -1002,7 +1314,9 @@ def main() -> int:
             "decode_attention": (csrc + "decode_attention.cu",
                                  "src/repro/kernels/decode_attention.py:63"),
             "rglru_scan": (csrc + "rglru_scan.cu",
-                           "src/repro/kernels/rglru_scan.py:42")}
+                           "src/repro/kernels/rglru_scan.py:42"),
+            "mlstm_chunkwise": (csrc + "mlstm_chunkwise.cu",
+                                "src/repro/kernels/mlstm_chunk.py:91")}
     # paged_decode_attention lies on no serving path in either package:
     # only the phase 2 checks launch it, so its path count is 0
     off_path = {"paged_decode_attention"}

@@ -7,9 +7,11 @@ unrolled remainder layers.  The port keeps one dict per layer, so layer
 ``rep * pattern_len + pi`` is ``trunk[pi][...][rep]`` and the remainder
 layers follow.  The caller hands the parameters over as nested dicts and
 tuples of numpy arrays (``jax.device_get``); this module imports no JAX.
-Recurrent layers' ``rec`` dicts come over like the rest, except that the
-RG-LRU ``lam`` keeps its fp32 under any ``dtype``, as ``init_rec`` makes
-it in a bf16 model.
+Recurrent layers' ``rec``, ``mlstm`` and ``slstm`` dicts come over like
+the rest, except for the leaves that the JAX package makes fp32 in a bf16
+model, which keep their fp32 under any ``dtype``: the RG-LRU ``lam``, the
+mLSTM gate weights ``w_i``, ``w_f``, ``b_i``, ``b_f`` and the sLSTM
+recurrence ``r`` and bias ``b``.
 """
 from __future__ import annotations
 
@@ -30,33 +32,37 @@ def _tensor(a, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-# leaves that keep their source dtype whatever ``dtype`` asks for
-_KEEP_DTYPE = ("lam",)
+# (block, leaf) pairs that keep their source dtype whatever ``dtype`` asks
+# for (the RG-LRU ``w_i`` is in the model dtype: the block matters)
+_KEEP_DTYPE = {("rec", "lam"), ("mlstm", "w_i"), ("mlstm", "w_f"),
+               ("mlstm", "b_i"), ("mlstm", "b_f"), ("slstm", "r"),
+               ("slstm", "b")}
 
 
-def _tree(x, fn, key=None):
+def _tree(x, fn, path=()):
     if isinstance(x, dict):
-        return {k: _tree(v, fn, k) for k, v in x.items()}
-    return fn(x, key)
+        return {k: _tree(v, fn, path + (k,)) for k, v in x.items()}
+    return fn(x, path)
 
 
 def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
                     dtype=None) -> Dict[str, Any]:
     """Port-layout parameters from numpy copies of the JAX package's
-    (dense and hybrid families).  ``dtype`` casts every leaf but ``lam``;
-    None keeps the source dtype.  ``device`` defaults to the GPU."""
+    (dense, hybrid and ssm families).  ``dtype`` casts every leaf but
+    those of ``_KEEP_DTYPE``; None keeps the source dtype.  ``device``
+    defaults to the GPU."""
     dev = resolve_device(device)
 
-    def conv(a, key=None):
-        return _tensor(a, dev, None if key in _KEEP_DTYPE else dtype)
+    def conv(a, path=()):
+        return _tensor(a, dev, None if path[-2:] in _KEEP_DTYPE else dtype)
 
     reps, plen = cfg.n_pattern_reps, cfg.pattern_len
     layers = []
     for rep in range(reps):
         for pi in range(plen):
             layers.append(_tree(jax_params["trunk"][pi],
-                                lambda a, key, r=rep: conv(np.asarray(a)[r],
-                                                           key)))
+                                lambda a, path, r=rep: conv(np.asarray(a)[r],
+                                                            path)))
     layers += [_tree(lp, conv) for lp in jax_params["rem"]]
     out = {"embed": conv(jax_params["embed"]), "layers": layers,
            "final_norm": _tree(jax_params["final_norm"], conv)}

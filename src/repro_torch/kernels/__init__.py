@@ -6,12 +6,13 @@ in a plain integer attribute (``paged_decode_step.launches``).
 """
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mlstm_chunk import mlstm_chunkwise
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_decode_step)
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 KERNELS = (paged_decode_step, flash_attention, paged_decode_attention,
-           decode_attention, rglru_scan)
+           decode_attention, rglru_scan, mlstm_chunkwise)
 
 
 def reset_launch_counts() -> None:
@@ -20,5 +21,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["flash_attention", "paged_decode_step", "paged_decode_attention",
-           "decode_attention", "rglru_scan", "KERNELS",
+           "decode_attention", "rglru_scan", "mlstm_chunkwise", "KERNELS",
            "reset_launch_counts"]

@@ -143,3 +143,99 @@ def rglru_scan_ref(a, b, h0):
         carry = af[:, t] * carry + bf[:, t]
         h[:, t] = carry.to(a.dtype)
     return h
+
+
+MLSTM_CHUNK = 64               # the CUDA kernel's chunk length
+
+
+def mlstm_chunk_step(q, k, v, i_pre, f_pre, state):
+    """One chunk of stabilised mLSTM, vectorised over (B, H): the plain
+    version's own copy of ``repro.models.xlstm._mlstm_chunk`` (the model's
+    decode step is ``models.xlstm._mlstm_chunk``; this one serves only as
+    the reference).
+
+    q, k, v: (B,H,L,dh), k already scaled by 1/sqrt(dh); i_pre, f_pre:
+    (B,H,L) raw gate pre-activations; state (C (B,H,dh,dh), n (B,H,dh),
+    m (B,H)) in fp32.  Returns (h (B,H,L,dh) in q's dtype, new state)."""
+    C, n, m = state
+    L = q.shape[2]
+    logf = torch.nn.functional.logsigmoid(f_pre.float())
+    b = torch.cumsum(logf, dim=-1)                          # inclusive
+    g = b[..., -1]
+    i_pre = i_pre.float()
+    D = b[..., :, None] - b[..., None, :] + i_pre[..., None, :]
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    D = torch.where(causal, D, torch.full_like(D, NEG_INF))
+    m_intra = D.amax(dim=-1)
+    m_inter = b + m[..., None]
+    m_j = torch.maximum(m_intra, m_inter)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scores = qf @ kf.transpose(-1, -2)
+    w_att = scores * torch.exp(D - m_j[..., None])
+    inter_scale = torch.exp(m_inter - m_j)
+    numer = inter_scale[..., None] * (qf @ C) + w_att @ vf
+    qn = (qf @ n[..., None])[..., 0]
+    denom = inter_scale * qn + w_att.sum(-1)
+    h = numer / torch.maximum(denom.abs(), torch.exp(-m_j))[..., None]
+    s_gate = g[..., None] - b + i_pre
+    m_new = torch.maximum(g + m, s_gate.amax(dim=-1))
+    carry = torch.exp(g + m - m_new)
+    kw = torch.exp(s_gate - m_new[..., None])[..., None] * kf
+    C_new = carry[..., None, None] * C + kw.transpose(-1, -2) @ vf
+    n_new = carry[..., None] * n + kw.sum(dim=-2)
+    return h.to(q.dtype), (C_new, n_new, m_new)
+
+
+def mlstm_chunkwise_ref(q, k, v, i_pre, f_pre, state=None, *,
+                        chunk: int = MLSTM_CHUNK):
+    """Chunkwise mLSTM over any S: ``mlstm_chunk_step`` on chunks of
+    ``chunk`` tokens, the last one short when ``chunk`` does not divide S
+    (the JAX oracle drops such a tail).  q, k, v: (B,H,S,dh); i_pre, f_pre:
+    (B,H,S); ``state`` (C, n, m) to start from, fresh (zeros, m = -1e30)
+    when None.  Returns (h (B,H,S,dh) in q's dtype, final (C, n, m))."""
+    B, H, S, dh = q.shape
+    if state is None:
+        state = (torch.zeros((B, H, dh, dh), device=q.device),
+                 torch.zeros((B, H, dh), device=q.device),
+                 torch.full((B, H), NEG_INF, device=q.device))
+    hs = []
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, t0 + chunk)
+        h, state = mlstm_chunk_step(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                    i_pre[:, :, sl], f_pre[:, :, sl], state)
+        hs.append(h)
+    return torch.cat(hs, dim=2), state
+
+
+def mlstm_parallel_f64(q, k, v, i_pre, f_pre):
+    """The mLSTM from a fresh state in its parallel (quadratic) form, in
+    fp64: an oracle independent of any chunking, and the conditioning of
+    each output.  Same inputs as ``mlstm_chunkwise_ref``.
+
+    With b = cumsum(logsigmoid(f)), a_s = i_s - b_s and M_j = max_{s<=j}
+    a_s, the stabiliser is m_j = b_j + M_j at any chunk length, and
+      h_j = sum_{s<=j} (q_j.k_s) E_js v_s / max(|den_j|, e^{-m_j}),
+      den_j = sum_{s<=j} (q_j.k_s) E_js,   E_js = e^{a_s - M_j} <= 1.
+    Where den_j cancels far below its terms, any two summation orders
+    disagree: a result computed with relative rounding u per term is off
+    by at most about u * scale, with
+      scale_je = (N_je + |h_je| T_j) / max(|den_j|, e^{-m_j}),
+      T_j = sum_s |q_j|.|k_s| E_js,   N_je = sum_s |q_j|.|k_s| E_js |v_se|.
+    Returns (h, scale, (C, n, m)), all fp64."""
+    f64 = torch.float64
+    q, k, v = q.to(f64), k.to(f64), v.to(f64)
+    b = torch.cumsum(torch.nn.functional.logsigmoid(f_pre.to(f64)), -1)
+    a = i_pre.to(f64) - b
+    M = torch.cummax(a, dim=-1).values
+    S = q.shape[2]
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    E = torch.where(causal, torch.exp(a[..., None, :] - M[..., :, None]),
+                    torch.zeros((), dtype=f64, device=q.device))
+    W = (q @ k.transpose(-1, -2)) * E
+    A = (q.abs() @ k.abs().transpose(-1, -2)) * E
+    floor = torch.maximum((W.sum(-1)).abs(), torch.exp(-(b + M)))
+    h = (W @ v) / floor[..., None]
+    scale = (A @ v.abs() + h.abs() * A.sum(-1)[..., None]) / floor[..., None]
+    last = torch.exp(a - M[..., -1:])[..., None] * k        # (B,H,S,dh)
+    state = (last.transpose(-1, -2) @ v, last.sum(-2), b[..., -1] + M[..., -1])
+    return h, scale, state

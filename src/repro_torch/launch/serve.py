@@ -4,6 +4,7 @@ and serve a static batch through ``InferenceEngine`` (the default, as
 through the continuous-batching engine (``--continuous``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
       --d-model 64 --device cpu --requests 6 --prompt 16 --tokens 4

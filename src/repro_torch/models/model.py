@@ -1,17 +1,21 @@
-"""Decoder model (dense and hybrid): init / forward / decode, in PyTorch.
+"""Decoder model (dense, hybrid, ssm): init / forward / decode, in PyTorch.
 
-The counterpart of ``repro.models.model`` for ``family="dense"`` and
-``family="hybrid"`` (RG-LRU + local attention, RecurrentGemma); other
-families raise ``NotImplementedError``.  Parameters are a plain dict:
+The counterpart of ``repro.models.model`` for ``family="dense"``,
+``family="hybrid"`` (RG-LRU + local attention, RecurrentGemma) and
+``family="ssm"`` (mLSTM + sLSTM blocks, xLSTM); other families raise
+``NotImplementedError``.  Parameters are a plain dict:
 ``{"embed", "layers": [per-layer dict, ...], "final_norm"}`` plus
-``"head"`` when embeddings are not tied; a layer holds ``"attn"`` or
-``"rec"`` by its pattern entry.  The JAX package stacks the trunk for
+``"head"`` when embeddings are not tied; a layer holds ``"attn"``,
+``"rec"``, ``"mlstm"`` or ``"slstm"`` by its pattern entry, and
+``"norm2"``/``"ffn"`` when its ffn is ``dense`` (xLSTM blocks own their
+projections: ffn ``none``).  The JAX package stacks the trunk for
 ``lax.scan``; here a Python loop runs over ``layers`` in order
 (``repro_torch.bridge`` unstacks JAX parameters into this layout).
 
 Two decode-cache layouts, both ``{"layers": [per-layer entry, ...],
 "pos": (n_slots,) int32, ...}``; recurrent layers keep their state
-``{"h","conv"}`` slot-indexed in either:
+(``{"h","conv"}`` RG-LRU, ``{"C","n","m","conv"}`` mLSTM,
+``{"c","n","h","m"}`` sLSTM) slot-indexed in either:
 - striped (``init_cache``): each attention layer holds a ring
   ``{"k","v": (n_slots, W, kv, dh), "pos": (n_slots, W)}`` of width
   W = min(window, max_len) (``max_len`` for global layers);
@@ -27,7 +31,7 @@ API:
   forward(cfg, params, batch, build_cache=...)      -> {"logits", "kv"?}
   decode_step(cfg, params, cache, tokens, positions) -> (logits, cache)
   init_cache(cfg, n_slots, max_len, ...)            -> zeroed striped cache
-  cache_from_prefill(cfg, kv, max_len)              -> striped cache
+  cache_from_prefill(cfg, kv, max_len, n_tokens)    -> striped cache
   init_paged_cache(cfg, n_slots, ...)               -> zeroed paged cache
   make_batch(cfg, batch, seq_len, seed, device)     -> {"tokens"}
 """
@@ -43,12 +47,17 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.models import xlstm as X
 from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, paged_geometry,
                                           pages_for)
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "ssm")
 ATTN_MIXERS = ("attn", "attn_full")
+STATE_MIXERS = ("rec", "mlstm", "slstm")       # slot-indexed state, no K/V
+_INIT = {"rec": R.init_rec, "mlstm": X.init_mlstm, "slstm": X.init_slstm}
+_INIT_STATE = {"rec": R.init_rec_state, "mlstm": X.init_mlstm_state,
+               "slstm": X.init_slstm_state}
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -58,7 +67,8 @@ def _check_family(cfg: ModelConfig) -> None:
             f"{cfg.family!r} ({cfg.arch_id})")
     for entry in cfg.layer_pattern:
         mixer, ffn = entry.split(":")
-        if mixer not in ATTN_MIXERS + ("rec",) or ffn != "dense":
+        if mixer not in ATTN_MIXERS + STATE_MIXERS or \
+                ffn not in ("dense", "none"):
             raise NotImplementedError(f"layer entry {entry!r} is not ported")
 
 
@@ -84,23 +94,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Params:
     """Random weights with the JAX package's distributions (normal
     embeddings ×0.02, normal projections ×1/sqrt(d_in), unit norms, zero
-    biases, RG-LRU ``lam`` an fp32 ramp), drawn from a ``torch.Generator``
-    seeded with ``seed`` on the target device (default: the GPU; pass
-    ``device="cpu"`` for the CPU)."""
+    biases, RG-LRU ``lam`` and the xLSTM gates and recurrence in fp32),
+    drawn from a ``torch.Generator`` seeded with ``seed`` on the target
+    device (default: the GPU; pass ``device="cpu"`` for the CPU)."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev)}
     layers = []
-    for mixer in _mixers(cfg):
+    for entry in _entries(cfg):
+        mixer, ffn = entry.split(":")
         lp = {"norm1": L.init_norm(cfg, dtype, dev)}
-        if mixer == "rec":
-            lp["rec"] = R.init_rec(cfg, gen, dtype, dev)
+        if mixer in STATE_MIXERS:
+            lp[mixer] = _INIT[mixer](cfg, gen, dtype, dev)
         else:
             lp["attn"] = L.init_attention(cfg, gen, dtype, dev)
-        lp["norm2"] = L.init_norm(cfg, dtype, dev)
-        lp["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
+        if ffn == "dense":
+            lp["norm2"] = L.init_norm(cfg, dtype, dev)
+            lp["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
         layers.append(lp)
     p["layers"] = layers
     p["final_norm"] = L.init_norm(cfg, dtype, dev)
@@ -127,6 +139,8 @@ def _unembed(cfg: ModelConfig, params: Params, x):
 
 
 def _ffn_block(p: Params, x, cfg: ModelConfig):
+    if "ffn" not in p:                  # ffn "none": the block owns its MLP
+        return x
     return x + L.apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg)
 
 
@@ -139,8 +153,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     Returns {"logits": (B,S,V)} ((B,1,V) for the last position alone with
     ``last_only``: the engines read no other row, and at a 256k vocabulary
     the full tensor is gigabytes) plus, with ``build_cache``, "kv": per
-    layer either the attention (k, v) of shape (B,S,kv,dh) or the RG-LRU
-    state {"h","conv"}.  ``kernel_impl``: see ``models.layers``."""
+    layer either the attention (k, v) of shape (B,S,kv,dh) or the
+    recurrent layer's final state dict.  ``kernel_impl``: see
+    ``models.layers``."""
     _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -153,6 +168,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         if mixer == "rec":
             a, state = R.apply_rec(lp["rec"], h, cfg,
                                     kernel_impl=kernel_impl)
+        elif mixer == "mlstm":
+            a, state = X.apply_mlstm(lp["mlstm"], h, cfg,
+                                     kernel_impl=kernel_impl)
+        elif mixer == "slstm":
+            a, state = X.apply_slstm(lp["slstm"], h, cfg)
         else:
             a, state = L.full_attention(
                 lp["attn"], h, cfg, positions, rope=rope,
@@ -188,6 +208,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache, tokens, positions,
         entry = cache["layers"][i]
         if mixer == "rec":
             a, cache["layers"][i] = R.apply_rec_step(lp["rec"], h, cfg, entry)
+        elif mixer == "mlstm":
+            a, cache["layers"][i] = X.apply_mlstm_step(lp["mlstm"], h, cfg,
+                                                       entry)
+        elif mixer == "slstm":
+            a, cache["layers"][i] = X.apply_slstm_step(lp["slstm"], h, cfg,
+                                                       entry)
         elif paged:
             a, _ = L.paged_decode_attention(
                 lp["attn"], h, entry, cfg, positions, cache["pages"],
@@ -212,14 +238,14 @@ def _ring_width(cfg: ModelConfig, mixer: str, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
                dtype=torch.float32, device=None):
     """Zeroed striped decode cache: a ring per attention layer of width
-    W = min(window, max_len) (``max_len`` for global layers), the RG-LRU
-    state per recurrent layer, and the per-slot positions."""
+    W = min(window, max_len) (``max_len`` for global layers), the state
+    per recurrent layer, and the per-slot positions."""
     _check_family(cfg)
     dev = resolve_device(device)
     layers = []
     for mixer in _mixers(cfg):
-        if mixer == "rec":
-            layers.append(R.init_rec_state(cfg, n_slots, dtype, dev))
+        if mixer in STATE_MIXERS:
+            layers.append(_INIT_STATE[mixer](cfg, n_slots, dtype, dev))
         else:
             layers.append(L.init_kv_cache(
                 cfg, n_slots, max_len, dtype, dev,
@@ -228,15 +254,21 @@ def init_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
 
 
-def cache_from_prefill(cfg: ModelConfig, kv, max_len: int):
-    """The striped decode cache of a prefill batch, from
-    ``forward(build_cache=True)["kv"]``: each attention layer's K/V become
-    its ring (the last W tokens at their ring slots when the prompt is
-    longer than the ring), each recurrent layer's final state is kept, and
-    every row's position is the prompt length."""
-    layers, k = [], None
+def _batch_rows(entry):
+    """(batch size, device) of one layer's prefill output."""
+    t = next(iter(entry.values())) if isinstance(entry, dict) else entry[0]
+    return t.shape[0], t.device
+
+
+def cache_from_prefill(cfg: ModelConfig, kv, max_len: int, n_tokens: int):
+    """The striped decode cache of a prefill batch of ``n_tokens``-token
+    prompts, from ``forward(build_cache=True)["kv"]``: each attention
+    layer's K/V become its ring (the last W tokens at their ring slots
+    when the prompt is longer than the ring), each recurrent layer's final
+    state is kept, and every row's position is the prompt length."""
+    layers = []
     for mixer, entry in zip(_mixers(cfg), kv):
-        if mixer == "rec":
+        if mixer in STATE_MIXERS:
             layers.append(entry)
             continue
         k, v = entry
@@ -245,18 +277,17 @@ def cache_from_prefill(cfg: ModelConfig, kv, max_len: int):
         layers.append(L.kv_cache_from_prefill(
             cfg, k, v, positions, max_len,
             window=_ring_width(cfg, mixer, max_len)))
-    if k is None:
-        raise ValueError("cache_from_prefill needs an attention layer to "
-                         "read the prompt length from")
+    B, dev = _batch_rows(kv[0])
     return {"layers": layers,
-            "pos": torch.full((B,), S, dtype=torch.int32, device=k.device)}
+            "pos": torch.full((B,), n_tokens, dtype=torch.int32,
+                              device=dev)}
 
 
 # ============================================================== batch maker
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0,
                device=None) -> Dict[str, torch.Tensor]:
     """Random token batch {"tokens": (batch, seq_len) int64} drawn with
-    numpy from ``seed`` (dense and hybrid families carry tokens only)."""
+    numpy from ``seed`` (the ported families carry tokens only)."""
     _check_family(cfg)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (batch, seq_len))
@@ -272,8 +303,9 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
     """Zeroed paged decode cache: per-attention-layer page pools carry ONE
     extra trash page (index n_pages) that absorbs writes from FREE slots,
     recurrent layers hold their state per slot, and the top level holds
-    the shared page table (all -1).  ``n_pages``/``max_pages`` default
-    from ``max_len``."""
+    the shared page table (all -1), also when no layer has pools (xLSTM:
+    the engine still allocates pages, as the JAX one does).
+    ``n_pages``/``max_pages`` default from ``max_len``."""
     _check_family(cfg)
     dev = resolve_device(device)
     if page_size is None:
@@ -289,7 +321,8 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
         if n_pages is None:
             n_pages = n_slots * max_pages
     shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.d_head)
-    layers = [R.init_rec_state(cfg, n_slots, dtype, dev) if mixer == "rec"
+    layers = [_INIT_STATE[mixer](cfg, n_slots, dtype, dev)
+              if mixer in STATE_MIXERS
               else {"k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
               for mixer in _mixers(cfg)]
@@ -299,10 +332,12 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
                                 device=dev)}
 
 
-def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row):
-    """Write a batch-1 prefill (``forward(build_cache=True)["kv"]``)
-    into ``slot``, in place: attention K/V straight into the slot's pages,
-    recurrent state into the slot's row.  Whole pages are written: the
+def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row,
+                          n_tokens: int):
+    """Write a batch-1 prefill of an ``n_tokens``-token prompt
+    (``forward(build_cache=True)["kv"]``) into ``slot``, in place:
+    attention K/V straight into the slot's pages, recurrent state into the
+    slot's row, and the slot's position.  Whole pages are written: the
     tail of the prompt's last page gets zeros, as the JAX package's
     page-granular scatter of its zero-padded ring cache gives, so the pools
     match it byte for byte outside the trash page.  Every prompt token is
@@ -311,18 +346,20 @@ def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row):
     same.  Unallocated table entries land on the trash page."""
     attn = [(pool, e) for pool, e, mixer in zip(cache["layers"], kv,
                                                  _mixers(cfg))
-            if mixer != "rec"]
+            if mixer in ATTN_MIXERS]
     for state, e, mixer in zip(cache["layers"], kv, _mixers(cfg)):
-        if mixer == "rec":
-            state["h"][slot] = e["h"][0].to(state["h"].dtype)
-            state["conv"][slot] = e["conv"][0].to(state["conv"].dtype)
-    S = attn[0][1][0].shape[1]
+        if mixer in STATE_MIXERS:
+            for name, dst in state.items():
+                dst[slot] = e[name][0].to(dst.dtype)
+    cache["pos"][slot] = n_tokens
+    if not attn:
+        return cache
     MP = pt_row.shape[0]
     P, ps = attn[0][0]["k"].shape[:2]
-    npg = max(min(-(-S // ps), MP), 1)
+    npg = max(min(-(-n_tokens // ps), MP), 1)
     row = pt_row[:npg].long()
     pg = torch.where(row >= 0, row, P - 1)
-    n = min(S, npg * ps)
+    n = min(n_tokens, npg * ps)
     for pool, (k, v) in attn:
         for name, src in (("k", k), ("v", v)):
             dst = pool[name]
@@ -330,7 +367,6 @@ def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row):
                                 dtype=dst.dtype, device=dst.device)
             pages[:n] = src[0, :n].to(dst.dtype)
             dst[pg] = pages.reshape((npg, ps) + tuple(dst.shape[2:]))
-    cache["pos"][slot] = S
     return cache
 
 
@@ -338,7 +374,7 @@ def supports_prefix_sharing(cfg: ModelConfig) -> bool:
     """CoW prefix sharing covers configs whose every layer keeps paged
     attention state (every dense config): recurrent layers fold the whole
     prefix into one state vector, which cannot be shared by pages, so the
-    hybrid family is excluded."""
+    hybrid and ssm families are excluded."""
     return cfg.family != "encdec" and all(
         mixer in ATTN_MIXERS for mixer in _mixers(cfg))
 
@@ -378,7 +414,7 @@ def paged_copy_page(cfg: ModelConfig, cache, src: int, dst: int):
     """Fork-on-write device copy: duplicate pool page ``src`` into ``dst``
     in every attention layer's pools, in place."""
     for pool, mixer in zip(cache["layers"], _mixers(cfg)):
-        if mixer == "rec":
+        if mixer not in ATTN_MIXERS:
             continue
         pool["k"][dst] = pool["k"][src]
         pool["v"][dst] = pool["v"][src]

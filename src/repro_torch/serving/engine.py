@@ -8,7 +8,8 @@ cache: the ring decode kernel, one launch per attention layer per step).
 KV cache by default or, with ``paged=False``, on per-slot striped rings.
 Each tick advances every live slot by one pooled decode step and
 prefills new arrivals into free slots (the flash prefill kernel; the
-RG-LRU scan kernel for recurrent layers).  On the paged layout
+RG-LRU scan and mLSTM chunkwise kernels for recurrent layers; an
+attention-free model still allocates pages, which carry no K/V).  On the paged layout
 copy-on-write prefix sharing lets a prompt whose leading pages are cached
 share them and prefill only its suffix (attention-only configs).
 
@@ -54,8 +55,8 @@ class InferenceEngine:
         cache_len = cache_len or self.max_len
         out = forward(self.cfg, self.params, batch, build_cache=True,
                       kernel_impl=self.kernel_impl, last_only=True)
-        return out["logits"][:, -1], cache_from_prefill(self.cfg, out["kv"],
-                                                        cache_len)
+        return out["logits"][:, -1], cache_from_prefill(
+            self.cfg, out["kv"], cache_len, batch["tokens"].shape[1])
 
     def generate(self, batch: Dict, max_new_tokens: int, *,
                  greedy: bool = True,
@@ -243,11 +244,12 @@ class ContinuousBatchingEngine:
                 self.pages.ensure(slot, len(toks))
                 self.cache["pages"] = self.pages.device_table(self.device)
                 paged_prefill_scatter(self.cfg, self.cache, out["kv"], slot,
-                                      self.cache["pages"][slot])
+                                      self.cache["pages"][slot], len(toks))
             else:
                 cache_scatter(self.cache,
                               cache_from_prefill(self.cfg, out["kv"],
-                                                 self.max_len), slot)
+                                                 self.max_len, len(toks)),
+                              slot)
         if self.prefix_sharing:
             # index the prompt's immutable pages so later prompts can
             # share them; decode never appends into an indexed page

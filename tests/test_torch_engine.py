@@ -6,8 +6,9 @@ JAX ``ContinuousBatchingEngine`` and the port's, on the same weights via
 ``repro_torch.bridge``, and require IDENTICAL greedy tokens, with prefix
 sharing on and off.  The static ``InferenceEngine``, the striped layout
 (``paged=False``) and the hybrid family (reduced recurrentgemma-2b, five
-layers, window 64; prompts and decodes cross the window) are held to the
-JAX engines the same way.  The allocator cases are the property tests of
+layers, window 64; prompts and decodes cross the window) and the ssm
+family (reduced xlstm-1.3b, eight layers, no attention; prompts cross the
+port's 64-token mLSTM chunk) are held to the JAX engines the same way.  The allocator cases are the property tests of
 ``tests/test_paged.py`` and ``tests/test_prefix_sharing.py`` re-run
 against the port's ``PageTable`` and ``PrefixIndex``.
 """
@@ -29,6 +30,7 @@ from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
 MAX_LEN = 48
 PAGE_SIZE = 16
 HYBRID = "recurrentgemma-2b"
+SSM = "xlstm-1.3b"
 HYBRID_MAX_LEN = 96            # the ring (window 64) is shorter than the pool
 _CTX = {}
 
@@ -126,10 +128,10 @@ def _hybrid_trace():
     return [(tok(n), m) for n, m in lens_new]
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID, SSM])
 def test_static_engine_tokens_equal_jax(arch):
     c = _ctx(arch)
-    S = 70 if arch == HYBRID else 20
+    S = 20 if arch == "qwen2.5-3b" else 70
     toks = np.random.default_rng(13).integers(0, 512, (3, S))
     want = JaxStaticEngine(c["cfg"], c["jp"]).generate(
         {"tokens": jax.numpy.asarray(toks, jax.numpy.int32)}, 8)
@@ -147,10 +149,10 @@ def test_static_engine_tokens_equal_jax(arch):
         eng.generate({"tokens": torch.from_numpy(toks)}, 2, greedy=False)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", HYBRID, SSM])
 def test_striped_engine_tokens_equal_jax(arch):
     c = _ctx(arch)
-    if arch == HYBRID:
+    if arch != "qwen2.5-3b":
         trace, max_len = _hybrid_trace(), HYBRID_MAX_LEN
     else:
         trace, max_len = _trace()[:5], MAX_LEN
@@ -172,6 +174,27 @@ def test_hybrid_paged_engine_tokens_equal_jax():
     got = _run(eng, trace)
     assert got == want
     assert not eng.prefix_sharing           # recurrent state: forced off
+    eng.pages.check_invariants()
+    assert eng.pages.n_allocated == 0
+
+
+def test_ssm_paged_engine_tokens_equal_jax():
+    """The paged engine on a model with no attention layer: a page table
+    and no pools.  Pages are still charged at admission, as in JAX: with
+    2 slots and a pool of 8 pages, two requests of 5 pages (a 60- or
+    70-token prompt and its decode) cannot run side by side, so the
+    schedule, hence the tokens, must follow the JAX engine's."""
+    c = _ctx(SSM)
+    trace = _hybrid_trace()
+    kw = dict(n_slots=2, max_len=HYBRID_MAX_LEN, page_size=PAGE_SIZE,
+              n_pages=8)
+    want = _run(JaxEngine(c["cfg"], c["jp"], **kw), trace)
+    eng = ContinuousBatchingEngine(c["pcfg"], c["tp"], **kw)
+    got = _run(eng, trace)
+    assert got == want
+    assert all(len(got[i]) == n for i, (_, n) in enumerate(trace))
+    assert not eng.prefix_sharing
+    assert all("k" not in e for e in eng.cache["layers"])
     eng.pages.check_invariants()
     assert eng.pages.n_allocated == 0
 

@@ -11,17 +11,21 @@ the RG-LRU sweep of ``tests/test_kernels.py``, which reach widths the
 serving path never uses (dh=8, 4-token pages); ``chip_smoke.py`` covers
 the serving path's shapes.  Tolerances are theirs: 2e-5 in fp32 (TF32
 off) and 2e-2 in bf16 for attention, with the pools byte-equal outside
-the trash page; 1e-4 and 5e-2 for the scan.
+the trash page; 1e-4 and 5e-2 for the scan; 2e-4 and 5e-2 for the mLSTM
+(``tests/test_kernels.py``) on h, and 2e-4 on the final (C, n, m) in
+either dtype.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (KERNELS, decode_attention, flash_attention,
-                                 paged_decode_attention, paged_decode_step,
-                                 rglru_scan)
+                                 mlstm_chunkwise, paged_decode_attention,
+                                 paged_decode_step, rglru_scan)
 from repro_torch.kernels.ref import (decode_attention_ref,
                                      flash_attention_ref,
+                                     mlstm_chunkwise_ref,
+                                     mlstm_parallel_f64,
                                      paged_decode_attention_ref,
                                      paged_decode_step_ref, rglru_scan_ref)
 
@@ -69,6 +73,20 @@ DECODE_BUCKETS = [
 # (B, S, d)
 SCAN_SHAPES = [(2, 512, 256), (1, 1024, 128), (3, 256, 384), (1, 64, 128),
                (2, 1, 96), (1, 17, 2560), (2, 100, 200)]
+# (B, H, S, dh, gates, dtype): tests/test_kernels.py's sweep, then S = 1,
+# S below / at / past the 64-token chunk, ragged S, xlstm-1.3b's dh 1024,
+# and extreme gates ("big_i": i_pre up to 40, the stabiliser at work;
+# "forget": f_pre near -30, the state forgets every step)
+MLSTM_BUCKETS = [
+    (2, 3, 512, 64, "normal", "f32"), (1, 2, 256, 128, "normal", "bf16"),
+    (1, 4, 128, 256, "normal", "f32"), (1, 4, 128, 256, "normal", "bf16"),
+    (2, 2, 1, 64, "normal", "f32"), (1, 3, 37, 64, "big_i", "bf16"),
+    (2, 2, 64, 256, "forget", "f32"), (1, 2, 200, 1024, "normal", "f32"),
+    (1, 4, 71, 1024, "big_i", "bf16"), (1, 1, 130, 1024, "forget", "bf16"),
+    (3, 1, 333, 192, "big_i", "f32"),
+    # the engines' prefill shapes at xlstm-1.3b's width
+    (1, 4, 1024, 1024, "normal", "bf16"), (4, 4, 1024, 1024, "normal", "f32"),
+]
 
 
 @pytest.fixture
@@ -276,6 +294,85 @@ def test_rglru_scan_kernel_matches_plain(cuda, shape, dt):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _mlstm_inputs(B, H, S, dh, gates, dt, dev, seed):
+    """q, k (scaled by 1/sqrt(dh)), v in ``dt``; fp32 gates."""
+    rng = np.random.default_rng([SEED, 6, seed])
+    x = lambda: rng.standard_normal((B, H, S, dh))        # noqa: E731
+    i_pre = rng.standard_normal((B, H, S))
+    f_pre = rng.standard_normal((B, H, S)) + 3.0
+    if gates == "big_i":
+        i_pre = i_pre * 10.0 + 20.0
+    elif gates == "forget":
+        f_pre = f_pre - 33.0
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    return (_t(x(), dt, dev), _t(x() / np.sqrt(dh), dt, dev),
+            _t(x(), dt, dev), f32(i_pre), f32(f_pre))
+
+
+def _mlstm_close(got, want, tol, what):
+    """h within ``tol``; C, n and m within the fp32 tolerance in either
+    dtype (both sides compute them in fp32 from the same inputs)."""
+    (h, (C, n, m)), (hr, (Cr, nr, mr)) = got, want
+    assert h.dtype == hr.dtype and torch.isfinite(h.float()).all()
+    for name, a, b, t in (("h", h, hr, tol), ("C", C, Cr, 2e-4),
+                          ("n", n, nr, 2e-4), ("m", m, mr, 2e-4)):
+        torch.testing.assert_close(a.float(), b.float(), atol=t, rtol=t,
+                                   msg=lambda e: f"{what} {name}: {e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bidx", range(len(MLSTM_BUCKETS)))
+def test_mlstm_chunkwise_kernel_matches_plain(cuda, bidx):
+    B, H, S, dh, gates, dt = MLSTM_BUCKETS[bidx]
+    args = _mlstm_inputs(B, H, S, dh, gates, dt, cuda, bidx)
+    got = mlstm_chunkwise(*args)
+    want = mlstm_chunkwise_ref(*args)
+    torch.cuda.synchronize()
+    _mlstm_close(got, want, 5e-2 if dt == "bf16" else 2e-4,
+                 str(MLSTM_BUCKETS[bidx]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mlstm_chunkwise_kernel_ill_conditioned(cuda, dt):
+    """A large input gate over 1024 tokens: rows whose normaliser cancels
+    far below its terms.  C, n and m within 2e-4 of the plain loop; h
+    within tol (1 + scale) of the fp64 parallel form, scale being each
+    output's conditioning (``mlstm_parallel_f64``)."""
+    args = _mlstm_inputs(1, 8, 1024, 256, "big_i", dt, cuda, 77)
+    h, state = mlstm_chunkwise(*args)
+    _, state_r = mlstm_chunkwise_ref(*args)
+    h64, scale, _ = mlstm_parallel_f64(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip("Cnm", state, state_r):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4,
+                                   msg=lambda e: f"{name}: {e}")
+    tol = 5e-2 if dt == "bf16" else 2e-4
+    assert torch.isfinite(h.float()).all()
+    assert ((h.double() - h64).abs() <= tol * (1.0 + scale)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 64, 100])
+def test_mlstm_chunkwise_kernel_resumes_from_state(cuda, split):
+    """Two launches, the second starting from the first's final state,
+    give the one-launch result: the carry crosses launches intact."""
+    q, k, v, i, f = _mlstm_inputs(2, 2, 230, 128, "normal", "f32", cuda,
+                                 split)
+    whole = mlstm_chunkwise(q, k, v, i, f)
+    cut = lambda t, a, b: t[:, :, a:b]                   # noqa: E731
+    h1, st = mlstm_chunkwise(*(cut(t, 0, split) for t in (q, k, v, i, f)))
+    h2, st = mlstm_chunkwise(*(cut(t, split, 230) for t in (q, k, v, i, f)),
+                             state=st)
+    want = mlstm_chunkwise_ref(*(cut(t, split, 230) for t in (q, k, v, i, f)),
+                               state=mlstm_chunkwise_ref(
+                                   *(cut(t, 0, split)
+                                     for t in (q, k, v, i, f)))[1])
+    torch.cuda.synchronize()
+    _mlstm_close((torch.cat([h1, h2], 2), st), whole, 2e-4, "split")
+    _mlstm_close((h2, st), want, 2e-4, "split vs plain")
+
+
 @pytest.mark.gpu
 def test_wrappers_count_launches(cuda):
     before = {fn.__name__: fn.launches for fn in KERNELS}
@@ -283,9 +380,12 @@ def test_wrappers_count_launches(cuda):
     flash_attention(q, q[:, :1], q[:, :1])
     a = torch.zeros((1, 3, 8), device=cuda)
     rglru_scan(a, a, a[:, 0])
+    x = torch.zeros((1, 1, 5, 64), device=cuda)
+    mlstm_chunkwise(x, x, x, x[..., 0], x[..., 0])
     after = {fn.__name__: fn.launches for fn in KERNELS}
     assert after["flash_attention"] == before["flash_attention"] + 1
     assert after["rglru_scan"] == before["rglru_scan"] + 1
+    assert after["mlstm_chunkwise"] == before["mlstm_chunkwise"] + 1
     for name in ("paged_decode_step", "paged_decode_attention",
                  "decode_attention"):
         assert after[name] == before[name]

@@ -7,7 +7,9 @@ interpret mode, as ``tests/test_kernel_fuzz.py`` and
 shuffled tables, wrapped rings, windows, bf16).  Tolerances are theirs:
 2e-5 in fp32 and 2e-2 in bf16 for attention, with the pools byte-equal
 outside the trash page; 1e-4 and 5e-2 for the RG-LRU scan (its oracle
-sums in another order: a log-depth scan against a sequential loop).
+sums in another order: a log-depth scan against a sequential loop);
+2e-4 and 5e-2 for the chunkwise mLSTM (chunked at 64 tokens in the port,
+at the sweep's chunk in JAX: the same arithmetic in another grouping).
 ``tests/test_torch_gpu.py`` holds the CUDA kernels to these plain
 versions on the card.
 """
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.mlstm_chunk import mlstm_chunkwise as pallas_mlstm
 from repro.kernels.ops import decode_attention as pallas_decode
 from repro.kernels.ops import flash_attention as pallas_flash
 from repro.kernels.ops import paged_decode_attention as pallas_paged
@@ -28,10 +31,14 @@ from repro.kernels.ref import decode_attention_ref as _jax_decode_ref
 from repro.kernels.ref import flash_attention_ref as _jax_flash_ref
 from repro.kernels.ref import paged_decode_attention_ref as _jax_paged_ref
 from repro.kernels.ref import paged_decode_step_ref as _jax_step_ref
+from repro.kernels.ref import mlstm_chunkwise_ref as jax_mlstm_ref
 from repro.kernels.ref import rglru_scan_ref as jax_scan_ref
+from repro.models.xlstm import _mlstm_chunk as jax_mlstm_chunk
 from repro_torch.kernels import (decode_attention, flash_attention,
-                                 paged_decode_attention, paged_decode_step,
-                                 rglru_scan)
+                                 mlstm_chunkwise, paged_decode_attention,
+                                 paged_decode_step, rglru_scan)
+from repro_torch.kernels.ref import (MLSTM_CHUNK, mlstm_chunkwise_ref,
+                                     mlstm_parallel_f64)
 
 # jitted as the fuzz harness jits them: one trace per bucket, not per case
 jax_step_ref = functools.partial(jax.jit, static_argnames=("window",))(
@@ -370,3 +377,116 @@ def test_flash_attention_plain_head_dim_256(window):
     out = flash_attention(t["q"], t["k"], t["v"], causal=True, window=window)
     ref = jax_flash_ref(j["q"], j["k"], j["v"], causal=True, window=window)
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+# tests/test_kernels.py's mLSTM sweep with S cut for the interpret run:
+# (B, H, S, dh, JAX chunk)
+MLSTM_SWEEP = [(2, 3, 256, 64, 128), (1, 2, 128, 128, 64), (1, 4, 128, 256, 128)]
+
+
+def _mlstm_inputs(B, H, S, dh, seed):
+    rng = np.random.default_rng([SEED, 6, seed])
+    return dict(q=rng.standard_normal((B, H, S, dh)),
+                k=rng.standard_normal((B, H, S, dh)) / np.sqrt(dh),
+                v=rng.standard_normal((B, H, S, dh)),
+                i=rng.standard_normal((B, H, S)),
+                f=rng.standard_normal((B, H, S)) + 3.0)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sidx", range(len(MLSTM_SWEEP)))
+def test_mlstm_chunkwise_plain_matches_jax(sidx, dt):
+    """The port's plain chunk loop (64-token chunks) against the JAX
+    oracle and the Pallas kernel in interpret mode (the sweep's chunk):
+    q, k, v in the sweep's dtype, gates fp32, h in q's dtype."""
+    B, H, S, dh, chunk = MLSTM_SWEEP[sidx]
+    x = _mlstm_inputs(B, H, S, dh, sidx)
+    jdt, tdt = DTYPES[dt]
+    tq, tk, tv = (torch.tensor(x[n], dtype=torch.float32).to(tdt)
+                  for n in "qkv")
+    ti, tf = (torch.tensor(x[n], dtype=torch.float32) for n in "if")
+    out, (C, n, m) = mlstm_chunkwise(tq, tk, tv, ti, tf)
+    assert out.dtype == tdt and out.shape == (B, H, S, dh)
+    assert C.shape == (B, H, dh, dh) and C.dtype == torch.float32
+    jq, jk, jv = (jnp.asarray(x[n], jdt) for n in "qkv")
+    ji, jf = (jnp.asarray(x[n], jnp.float32) for n in "if")
+    ref = jax_mlstm_ref(jq.astype(jnp.float32), jk.astype(jnp.float32),
+                        jv.astype(jnp.float32), ji, jf, chunk=chunk)
+    pal = pallas_mlstm(jq, jk, jv, ji, jf, chunk=chunk)
+    tol = 5e-2 if dt == "bf16" else 2e-4
+    for name, r in (("ref", ref), ("pallas", pal)):
+        np.testing.assert_allclose(_np(out), _np(r), atol=tol, rtol=tol,
+                                   err_msg=f"{name} {MLSTM_SWEEP[sidx]} {dt}")
+
+
+@pytest.mark.parametrize("S", [1, 37, MLSTM_CHUNK, 150])
+def test_mlstm_chunkwise_plain_ragged_s_and_state_match_jax(S):
+    """Any S: below, at and past the port's chunk with a short last chunk
+    (the JAX oracle drops such a tail), held to JAX ``_mlstm_chunk`` run as
+    ONE chunk over all S, h and the final (C, n, m) alike; then a second
+    call resumes from that state (as a second JAX chunk does)."""
+    x = _mlstm_inputs(2, 3, 2 * S, 32, S)
+    t = {n: torch.tensor(a, dtype=torch.float32) for n, a in x.items()}
+    j = {n: jnp.asarray(a, jnp.float32) for n, a in x.items()}
+    st = (jnp.zeros((2, 3, 32, 32)), jnp.zeros((2, 3, 32)),
+          jnp.full((2, 3), -1e30))
+    got_state = None
+    for half in (slice(0, S), slice(S, 2 * S)):
+        jh, st = jax_mlstm_chunk(*(j[n][:, :, half] for n in "qkvif"), st)
+        th, got_state = mlstm_chunkwise(*(t[n][:, :, half] for n in "qkvif"),
+                                        got_state)
+        np.testing.assert_allclose(_np(th), _np(jh), atol=2e-4, rtol=2e-4)
+        for name, a, b in zip("Cnm", got_state, st):
+            np.testing.assert_allclose(_np(a), _np(b), atol=2e-4, rtol=2e-4,
+                                       err_msg=f"S={S} {name}")
+    # the plain version at another chunk length gives the same result
+    h1, s1 = mlstm_chunkwise_ref(*(t[n] for n in "qkvif"), chunk=7)
+    h2, s2 = mlstm_chunkwise_ref(*(t[n] for n in "qkvif"))
+    np.testing.assert_allclose(_np(h1), _np(h2), atol=2e-4, rtol=2e-4)
+    for a, b in zip(s1, s2):
+        np.testing.assert_allclose(_np(a), _np(b), atol=2e-4, rtol=2e-4)
+
+
+def test_mlstm_chunkwise_plain_extreme_gates_match_jax():
+    """A large input gate (the stabiliser m at work) and a forget gate
+    near -30 (the state forgets every token): finite, equal to JAX."""
+    x = _mlstm_inputs(1, 2, 90, 32, 99)
+    x["i"] = x["i"] * 10.0 + 20.0
+    x["f"][:, :, 40:] -= 33.0
+    t = {n: torch.tensor(a, dtype=torch.float32) for n, a in x.items()}
+    j = {n: jnp.asarray(a, jnp.float32) for n, a in x.items()}
+    st = (jnp.zeros((1, 2, 32, 32)), jnp.zeros((1, 2, 32)),
+          jnp.full((1, 2), -1e30))
+    jh, st = jax_mlstm_chunk(*(j[n] for n in "qkvif"), st)
+    th, got = mlstm_chunkwise(*(t[n] for n in "qkvif"))
+    assert torch.isfinite(th).all()
+    np.testing.assert_allclose(_np(th), _np(jh), atol=2e-4, rtol=2e-4)
+    for a, b in zip(got, st):
+        np.testing.assert_allclose(_np(a), _np(b), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("gates", ["normal", "big_i"])
+def test_mlstm_parallel_f64_bounds_plain_and_jax(gates):
+    """The fp64 parallel form that ``chip_smoke.py`` holds the kernel's h
+    to where the normaliser is ill-conditioned: its final (C, n, m) equal
+    JAX ``_mlstm_chunk``'s within 2e-4, and both fp32 chunk loops (the
+    port's at 64 tokens, JAX's as one chunk) lie within 2e-4 (1 + scale)
+    of its h, scale being each output's conditioning."""
+    x = _mlstm_inputs(1, 2, 200, 32, 7)
+    if gates == "big_i":
+        x["i"] = x["i"] * 10.0 + 20.0
+    t = {n: torch.tensor(a, dtype=torch.float32) for n, a in x.items()}
+    j = {n: jnp.asarray(a, jnp.float32) for n, a in x.items()}
+    st = (jnp.zeros((1, 2, 32, 32)), jnp.zeros((1, 2, 32)),
+          jnp.full((1, 2), -1e30))
+    jh, st = jax_mlstm_chunk(*(j[n] for n in "qkvif"), st)
+    th, _ = mlstm_chunkwise_ref(*(t[n] for n in "qkvif"))
+    h64, scale, state = mlstm_parallel_f64(*(t[n] for n in "qkvif"))
+    assert h64.dtype == scale.dtype == torch.float64
+    assert (scale >= h64.abs()).all()
+    for a, b in zip(state, st):
+        np.testing.assert_allclose(a.numpy(), _np(b), atol=2e-4, rtol=2e-4)
+    bound = 2e-4 * (1.0 + scale.numpy())
+    for name, h in (("port", _np(th)), ("jax", _np(jh))):
+        over = np.abs(h.astype(np.float64) - h64.numpy()) > bound
+        assert not over.any(), f"{name}: {over.sum()} beyond the bound"
