@@ -5,13 +5,19 @@
 
 Phases (any failure exits non-zero, with no result line):
   1. build every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, in parallel) and print the card's name and power limit;
+     per source, in parallel), print the card's name and power limit and
+     each kernel's registers and spills, and count the HMMA (tensor-core)
+     instructions of each flash kernel in ``cuobjdump -sass``: the bf16
+     kernel must have some;
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, at the test tolerances (2e-5 and 2e-2 for
      attention, 1e-4 and 5e-2 for the RG-LRU scan), at the serving paths'
-     shapes and at the edge cases; time the kernel, its plain version and,
-     where one exists, a PyTorch library call computing the same function
-     (a yardstick the port never calls);
+     shapes and at the edge cases (for the fused step also one and two
+     slots with long lens, the split walk's few-slot ticks; for flash also
+     head dims the bf16 kernel pads); time the kernel, its plain version
+     and, where one exists, a PyTorch library call computing the same
+     function (a yardstick the port never calls); flash is timed in bf16
+     and fp32 (two kernels);
   3. serve full-width qwen2.5-3b (36 layers, d_model 2048, random bf16
      weights from a seed) through ``ContinuousBatchingEngine`` with prefix
      sharing on, then through ``InferenceEngine`` and the striped
@@ -100,6 +106,26 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
+def hmma_counts(source: str):
+    """HMMA (tensor-core mma) instructions per kernel function in the built
+    library of ``csrc/<source>.cu``, from ``cuobjdump -sass`` (the CUDA
+    toolkit's, beside nvcc)."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build._lib_path(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 # ------------------------------------------------------------ phase 2
 class ErrLog:
     """Largest |kernel - plain| seen per kernel and dtype, and the largest
@@ -163,8 +189,9 @@ def check_paged_step(errs, dtype_name):
     dh 128, a 2048-token pool) and recurrentgemma-2b's (8 slots, 10/1
     heads: g = 10 query heads per CTA, more than its 8 warps; dh 256; a
     3072-token pool, window 2048 on and off), over edge lens, FREE rows
-    and a NaN trash page; the pools must be byte-equal outside the trash
-    page."""
+    and a NaN trash page; then one and two slots with long lens at both
+    shapes (the split walk's few-slot ticks).  The pools must be byte-equal
+    outside the trash page."""
     import torch
     from repro_torch.kernels import paged_decode_step
     from repro_torch.kernels.ref import paged_decode_step_ref
@@ -222,11 +249,44 @@ def check_paged_step(errs, dtype_name):
                                          f"the output")
                 errs.check("paged_decode_step", dtype_name, out2, ref,
                            f"paged_decode_step {dtype_name} {what} NaN trash")
+    # the few-slot ticks the split walk is for: B = 1 and 2 with long lens
+    # at both model shapes (the most CTAs per (slot, KV head))
+    split_cases = [("qwen", 16, 2, 128, 2048, [[2047], [2048, 1333]],
+                    (None, 512)),
+                   ("recurrentgemma", 10, 1, 256, 3072, [[3000],
+                                                         [3072, 2049]],
+                    (2048, None))]
+    for label, H, KVH, dh, max_len, lens_sets, windows in split_cases:
+        MP = max_len // ps
+        for lens in lens_sets:
+            for window in windows:
+                what = (f"{label} H={H} KVH={KVH} dh={dh} split walk, B="
+                        f"{len(lens)} lens={lens} window={window}")
+                x = _step_inputs(gen, len(lens), H, KVH, dh, ps, MP,
+                                 torch.tensor(lens), dtype)
+                P = x["k"].shape[0]
+                args = (x["q"], x["kn"], x["vn"])
+                out, ko, vo = paged_decode_step(*args, x["k"].clone(),
+                                                x["v"].clone(), x["table"],
+                                                x["lens"], window=window)
+                ref, kr, vr = paged_decode_step_ref(*args, x["k"].clone(),
+                                                    x["v"].clone(),
+                                                    x["table"], x["lens"],
+                                                    window=window)
+                torch.cuda.synchronize()
+                errs.check("paged_decode_step", dtype_name, out, ref,
+                           f"paged_decode_step {dtype_name} {what}")
+                if not (torch.equal(ko[:P - 1], kr[:P - 1])
+                        and torch.equal(vo[:P - 1], vr[:P - 1])):
+                    raise AssertionError(f"paged_decode_step {dtype_name} "
+                                         f"{what}: pools differ outside the "
+                                         f"trash page")
 
 
 def check_flash(errs, dtype_name):
-    """qwen2.5-3b's prefill shape (H=16, KVH=2, dh=128) and
-    recurrentgemma-2b's (H=10, KVH=1, dh=256, window 2048)."""
+    """qwen2.5-3b's prefill shape (H=16, KVH=2, dh=128),
+    recurrentgemma-2b's (H=10, KVH=1, dh=256, window 2048), and head dims
+    the bf16 kernel zero-pads to its 64 and 256 buckets (8, 24, 192)."""
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -236,6 +296,8 @@ def check_flash(errs, dtype_name):
              for w in (None, 256)]
     cases += [(10, 1, 256, S, w) for S in (1, 17, 2048, 2600)
               for w in (None, 2048)]
+    cases += [(10, 1, dh, S, w) for dh in (8, 24, 192) for S in (5, 100, 1000)
+              for w in (None, 40)]
     for H, KVH, dh, S, window in cases:
         f = lambda h: torch.randn((1, h, S, dh), generator=gen,
                                   device="cuda").to(dtype)
@@ -524,7 +586,16 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
 
 def time_flash():
     """Kernel, plain, library call and bound at the longest prompt the
-    serving phase prefills (S=1024), bf16."""
+    serving phase prefills (S=1024), bf16 (the tensor-core kernel); the
+    same in fp32 (``"fp32"``: the CUDA-core kernel) and bf16 at dh 256
+    (``"dh256"``)."""
+    out = _time_flash_qwen("bfloat16")
+    out["fp32"] = _time_flash_qwen("float32")
+    out["dh256"] = time_flash_dh256()
+    return out
+
+
+def _time_flash_qwen(dtype_name):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
@@ -532,7 +603,7 @@ def time_flash():
     B, H, KVH, S, dh = 1, 16, 2, 1024, 128
     gen = torch.Generator(device="cuda").manual_seed(5)
     f = lambda h: torch.randn((B, h, S, dh), generator=gen,
-                              device="cuda").to(torch.bfloat16)
+                              device="cuda").to(getattr(torch, dtype_name))
     q, k, v = f(H), f(KVH), f(KVH)
     ms = time_ms(lambda: flash_attention(q, k, v))
     plain = time_ms(lambda: flash_attention_ref(q, k, v), iters=10)
@@ -542,14 +613,15 @@ def time_flash():
                                                          is_causal=True))
     pairs = S * (S + 1) // 2
     flops = 4 * pairs * dh * H * B
-    n_bytes = 2 * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
-    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    out = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-           "library_ms": lib,
-           "shape": "B=1 H=16 KVH=2 S=1024 dh=128 causal bf16 "
-                    "(library: SDPA, GQA heads expanded outside the timing)"}
-    out["dh256"] = time_flash_dh256()
-    return out
+    esz = q.element_size()
+    n_bytes = esz * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
+    b_ms, by = bound_ms(n_bytes, flops, dtype_name)
+    kind = "bf16" if dtype_name == "bfloat16" else "fp32"
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib,
+            "shape": f"B=1 H=16 KVH=2 S=1024 dh=128 causal {kind} "
+                     f"(library: SDPA, GQA heads expanded outside the "
+                     f"timing)"}
 
 
 def time_flash_dh256():
@@ -1253,6 +1325,13 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Function properties" in line):
                 log(f"[ptxas {name}] {line.strip()}")
+    hmma = hmma_counts("flash_attention")
+    for fn, n in sorted(hmma.items()):
+        log(f"[sass flash_attention] {n} HMMA in {fn}")
+    mma = {fn: n for fn, n in hmma.items() if "flash_mma_kernel" in fn}
+    if not mma or min(mma.values()) <= 0:
+        raise AssertionError(f"the bf16 flash kernel has no HMMA "
+                             f"instruction: {hmma}")
 
     errs = ErrLog()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1275,7 +1354,8 @@ def main() -> int:
               "rglru_scan": time_scan(),
               "mlstm_chunkwise": time_mlstm()}
     for name, t in timing.items():
-        for tag, tt in ((name, t), (f"{name} dh256", t.get("dh256"))):
+        for tag, tt in ((name, t), (f"{name} fp32", t.get("fp32")),
+                        (f"{name} dh256", t.get("dh256"))):
             if tt:
                 log(f"[time] {tag}: kernel_ms={tt['ms']:.4f} plain_ms="
                     f"{tt['plain_ms']:.4f} library_ms={tt['library_ms']} "
@@ -1337,8 +1417,9 @@ def main() -> int:
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]}
-        if "dh256" in t:
-            entry["dh256"] = t["dh256"]
+        for extra in ("fp32", "dh256"):     # flash's fp32 kernel; dh 256
+            if extra in t:
+                entry[extra] = t[extra]
         kernels.append(entry)
         if not math.isfinite(t["ms"]) or (launches <= 0
                                           and name not in off_path):

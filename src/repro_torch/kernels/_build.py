@@ -13,6 +13,7 @@ every source at once (one ``nvcc`` process each, started together).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -126,11 +127,13 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def n_split(name: str, pairs: int, n_tokens: int, device) -> int:
-    """How many CTAs share one (slot, KV head)'s walk in the read-only
-    decode kernels of ``csrc/<name>.cu``: chosen on the C side
-    (``split_count`` in ``decode_attend.cuh``) from the tile size and
-    ``device``'s SM count, for ``pairs`` walks of at most ``n_tokens``."""
+    """How many CTAs share one (slot, KV head)'s walk in the decode kernels
+    of ``csrc/<name>.cu``: chosen on the C side (``split_count`` in
+    ``decode_attend.cuh``) from the tile size and ``device``'s SM count, for
+    ``pairs`` walks of at most ``n_tokens``.  Cached: one library call per
+    (name, pairs, n_tokens, device)."""
     fn = function(name, "decode_split_count", [ctypes.c_int] * 3)
     n = fn(pairs, n_tokens, device.index)
     check(max(-n, 0), f"{name} split count")

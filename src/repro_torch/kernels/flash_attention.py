@@ -7,7 +7,10 @@ out (B,H,S,dh).  Unlike the TPU kernel, any S is taken (the kernel masks
 the ragged tail); dh is a multiple of 8 up to 256.
 
 A CPU tensor runs the plain version (``ref.flash_attention_ref``); a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  On CUDA the storage type picks the
+kernel: bf16 runs on the tensor cores (``mma.sync``), fp32 on the CUDA
+cores (a tensor-core product in fp32 would be TF32, short of the fp32
+tolerance).  No call falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q: (B,H,S,dh), k/v: (B,KVH,S,dh) -> (B,H,S,dh).
-    ``flash_attention.launches`` counts the kernel launches (CPU calls are
-    not counted)."""
+    ``flash_attention.launches`` counts the kernel launches of both
+    variants (CPU calls are not counted)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

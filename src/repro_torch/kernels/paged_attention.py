@@ -26,17 +26,39 @@ from repro_torch.kernels.ref import (paged_decode_attention_ref,
                                      paged_decode_step_ref)
 
 MAX_HEAD_DIM = 256
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+# the step's int32 arrival counters, one per (slot, KV head), per device:
+# zeroed once when allocated (or grown), and left zero by every launch
+_ARRIVALS = {}
+
+
+def _step_arrivals(device, pairs: int):
+    arrived = _ARRIVALS.get(device)
+    if arrived is None or arrived.numel() < pairs:
+        arrived = torch.zeros((pairs,), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = arrived
+    return arrived
 
 
 def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
                       *, window=None):
     """Returns (out (B,H,dh), k_pages, v_pages); the pools are the caller's
     tensors, written in place.  ``paged_decode_step.launches`` counts the
-    kernel launches (CPU calls are not counted)."""
+    kernel launches (CPU calls are not counted).
+
+    On CUDA each (slot, KV head) walk is split over n_split CTAs that merge
+    in the same launch through a per-device buffer of arrival counters.
+    Per call the wrapper adds no library call and no zeroing launch: the
+    split count is cached per (B·KVH, MP·ps, device) (``_build.n_split``),
+    the counters are allocated and zeroed once per device (``_ARRIVALS``,
+    grown when B·KVH grows) and every launch leaves them zero, and the fp32
+    partials come from the caching allocator.  Calls on one device must
+    therefore be serialised, as they are on its current stream."""
     if q.device.type == "cpu":
         return paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages,
                                      page_table, lens, window=window)
@@ -73,12 +95,17 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
     table = page_table.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    splits = _build.n_split("paged_decode_step", B * KVH, MP * ps, q.device)
+    part = torch.empty((B * KVH * splits * (H // KVH) * (dh + 2),),
+                       dtype=torch.float32, device=q.device)
+    arrived = _step_arrivals(q.device, B * KVH)
     fn = _build.function("paged_decode_step", "paged_decode_step_launch",
                          _ARGTYPES)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-             lens.data_ptr(), out.data_ptr(), B, H, KVH, dh, P, ps, MP,
-             window or 0, 1.0 / math.sqrt(dh), code, _build.stream_of(q))
+             lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+             arrived.data_ptr(), B, H, KVH, dh, P, ps, MP, window or 0,
+             splits, 1.0 / math.sqrt(dh), code, _build.stream_of(q))
     _build.check(err, "paged_decode_step")
     paged_decode_step.launches += 1
     return out, k_pages, v_pages

@@ -8,8 +8,11 @@ without the suite's JAX fixture:
 
 Shapes are the fuzz harness's buckets (``tests/test_kernel_fuzz.py``) and
 the RG-LRU sweep of ``tests/test_kernels.py``, which reach widths the
-serving path never uses (dh=8, 4-token pages); ``chip_smoke.py`` covers
-the serving path's shapes.  Tolerances are theirs: 2e-5 in fp32 (TF32
+serving path never uses (dh=8, 4-token pages), plus the paths of the bf16
+tensor-core flash kernel (padded head dims, S below one mma tile) and of
+the fused step's split walk (few slots with long lens, empty shares, FREE
+rows, 100 steps on one pool); ``chip_smoke.py`` covers the serving path's
+shapes.  Tolerances are theirs: 2e-5 in fp32 (TF32
 off) and 2e-2 in bf16 for attention, with the pools byte-equal outside
 the trash page; 1e-4 and 5e-2 for the scan; 2e-4 and 5e-2 for the mLSTM
 (``tests/test_kernels.py``) on h, and 2e-4 on the final (C, n, m) in
@@ -188,6 +191,144 @@ def test_flash_attention_kernel_matches_plain(cuda, bidx):
         torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dt),
                                    rtol=_tol(dt))
 
+
+
+# the bf16 tensor-core kernel's paths: head dims padded to the 64, 128 and
+# 256 buckets (8, 24, 192) and exact (64, 256); S below one 16-row mma
+# tile, at it, past it, past one 64-row tile, several tiles
+FLASH_MMA_DH = [8, 24, 64, 192, 256]
+FLASH_MMA_S = [1, 5, 15, 16, 17, 65, 200]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", FLASH_MMA_S)
+@pytest.mark.parametrize("dh", FLASH_MMA_DH)
+def test_flash_attention_bf16_mma_buckets(cuda, dh, S):
+    """B = 2, g = 10 query heads per KV head; causal, causal with a window
+    smaller than one 64-row tile, and non-causal."""
+    B, H, KVH = 2, 10, 1
+    for i, (causal, window) in enumerate([(True, None), (True, 40),
+                                          (False, None)]):
+        rng = np.random.default_rng([SEED, 11, dh, S, i])
+        q = _t(rng.standard_normal((B, H, S, dh)), "bf16", cuda)
+        k = _t(rng.standard_normal((B, KVH, S, dh)), "bf16", cuda)
+        v = _t(rng.standard_normal((B, KVH, S, dh)), "bf16", cuda)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            out.float(), ref.float(), atol=2e-2, rtol=2e-2,
+            msg=lambda m: f"causal={causal} window={window}\n{m}")
+
+
+def _split_step_case(rng, B, H, KVH, dh, ps, MP, lens, dt, dev, free=()):
+    """Inputs of one fused step over a pool of B·MP pages plus the trash
+    page; FREE rows (``free``) have no pages."""
+    P = B * MP + 1
+    table = np.full((B, MP), -1, np.int32)
+    pages = list(rng.permutation(P - 1))
+    for b, n in enumerate(lens):
+        if b not in free:
+            for c in range(min(MP, -(-max(n, 1) // ps))):
+                table[b, c] = pages.pop()
+    x = [_t(rng.standard_normal(shape), dt, dev) for shape in
+         [(B, H, dh), (B, KVH, dh), (B, KVH, dh), (P, ps, KVH, dh),
+          (P, ps, KVH, dh)]]
+    return x, torch.from_numpy(table).to(dev), torch.tensor(
+        lens, dtype=torch.int32, device=dev)
+
+
+def _step_vs_plain(x, table, lens, window, dt, what, k=None, v=None):
+    """One kernel step and one plain step from the same pools: outputs
+    within the tolerance, pools byte-equal outside the trash page."""
+    k = x[3] if k is None else k
+    v = x[4] if v is None else v
+    P = k.shape[0]
+    out, ko, vo = paged_decode_step(*x[:3], k.clone(), v.clone(), table,
+                                    lens, window=window)
+    ref, kr, vr = paged_decode_step_ref(*x[:3], x[3].clone(), x[4].clone(),
+                                        table, lens, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all(), what
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dt),
+                               rtol=_tol(dt), msg=lambda m: f"{what}\n{m}")
+    assert torch.equal(ko[:P - 1], kr[:P - 1]), what
+    assert torch.equal(vo[:P - 1], vr[:P - 1]), what
+
+
+# (label, B, H, KVH, dh, ps, MP, lens, window, FREE rows): one slot and
+# one KV head over ~3,000 tokens (the most splits); short lens in a long
+# pool (most shares empty); FREE rows among long slots; a window; a stale
+# lens
+SPLIT_STEP_CASES = [
+    ("one slot, 3000 tokens", 1, 10, 1, 256, 16, 192, [3000], None, ()),
+    ("one slot, 2999 tokens, window 2048", 1, 10, 1, 256, 16, 192, [2999],
+     2048, ()),
+    ("one slot, 3072 tokens, qwen heads", 1, 16, 2, 128, 16, 192, [3072],
+     None, ()),
+    ("short lens, empty shares", 4, 8, 2, 64, 16, 256, [0, 1, 2, 33], None,
+     ()),
+    ("short lens, window", 3, 8, 2, 64, 16, 256, [5, 40, 97], 16, ()),
+    ("FREE rows among long slots", 4, 16, 2, 128, 16, 128, [2048, 3, 1500,
+                                                            0], None,
+     (1, 3)),
+    ("FREE rows, window", 3, 10, 1, 256, 16, 128, [1700, 900, 2], 512,
+     (1,)),
+    # a stale lens past the table's MP·ps positions: the append clamps into
+    # the last column, a row the walk reads (the plain version reads it
+    # back after writing it)
+    ("stale lens past the table", 2, 8, 2, 64, 16, 8, [133, 40], None, ()),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("cidx", range(len(SPLIT_STEP_CASES)))
+def test_paged_decode_step_split_walk(cuda, cidx, dt):
+    what, B, H, KVH, dh, ps, MP, lens, window, free = SPLIT_STEP_CASES[cidx]
+    rng = np.random.default_rng([SEED, 12, cidx])
+    x, table, ln = _split_step_case(rng, B, H, KVH, dh, ps, MP, lens, dt,
+                                    cuda, free)
+    _step_vs_plain(x, table, ln, window, dt, what)
+    if free:
+        # NaN / Inf in the trash page, which FREE rows append to, must not
+        # reach any output under the split either
+        k, v = x[3].clone(), x[4].clone()
+        k[-1] = float("nan")
+        v[-1] = float("inf")
+        _step_vs_plain(x, table, ln, window, dt, f"{what}, NaN trash", k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_paged_decode_step_split_many_steps(cuda, dt):
+    """One pool stepped 100 times in a row by the kernel and by the plain
+    version, each step's output held to the plain one and the pools kept
+    byte-equal: an arrival counter left dirty by one launch would show in
+    the next."""
+    rng = np.random.default_rng([SEED, 13])
+    B, H, KVH, dh, ps, MP = 3, 8, 2, 64, 16, 32
+    lens = [200, 37, 0]                  # row 2 FREE throughout
+    x, table, _ = _split_step_case(rng, B, H, KVH, dh, ps, MP,
+                                   [MP * ps, MP * ps, 0], dt, cuda, (2,))
+    k, v = x[3].clone(), x[4].clone()
+    kr, vr = x[3].clone(), x[4].clone()
+    for step in range(100):
+        lens = [n + 1 if b != 2 else n for b, n in enumerate(lens)]
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        q, kn, vn = (_t(rng.standard_normal(s), dt, cuda) for s in
+                     [(B, H, dh), (B, KVH, dh), (B, KVH, dh)])
+        window = 64 if step % 3 == 0 else None
+        out, _, _ = paged_decode_step(q, kn, vn, k, v, table, ln,
+                                      window=window)
+        ref, _, _ = paged_decode_step_ref(q, kn, vn, kr, vr, table, ln,
+                                          window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dt),
+                                   rtol=_tol(dt),
+                                   msg=lambda m: f"step {step}\n{m}")
+        assert torch.equal(k[:-1], kr[:-1]) and torch.equal(v[:-1], vr[:-1])
 
 def _paged_case(rng, B, H, KVH, dh, ps, MP, dt, dev, zero_row=None):
     P = B * MP + 2

@@ -379,6 +379,31 @@ def test_flash_attention_plain_head_dim_256(window):
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
 
 
+
+# head dims the bf16 tensor-core kernel zero-pads to its 64 and 256
+# buckets, and S below one 16-row mma tile: (S, dh, window)
+FLASH_PADDED = [(1, 8, None), (5, 8, 3), (15, 8, None), (1, 24, None),
+                (7, 24, 4), (15, 24, None), (1, 192, None), (9, 192, None),
+                (15, 192, 6), (40, 24, 16), (40, 192, None)]
+
+
+@pytest.mark.parametrize("S,dh,window", FLASH_PADDED)
+def test_flash_attention_plain_bf16_padded_head_dims(S, dh, window):
+    """The plain version, which the card holds the bf16 kernel to, against
+    the JAX oracle and the Pallas kernel in interpret mode, in bf16, at
+    the head dims and lengths where the kernel pads."""
+    arrs = _flash_inputs(1, 4, 2, S, dh, 1000 + S * 7 + dh)
+    t, j = _torch(arrs, "bf16"), _jax(arrs, "bf16")
+    out = flash_attention(t["q"], t["k"], t["v"], causal=True, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 4, S, dh)
+    ref = jax_flash_ref(j["q"], j["k"], j["v"], causal=True, window=window)
+    bq = 8 if S % 8 == 0 else S
+    pal = pallas_flash(j["q"], j["k"], j["v"], causal=True, window=window,
+                       bq=bq, bk=bq)
+    for name, r in (("ref", ref), ("pallas", pal)):
+        np.testing.assert_allclose(_np(out), _np(r), atol=2e-2, rtol=2e-2,
+                                   err_msg=f"{name} S={S} dh={dh}")
+
 # tests/test_kernels.py's mLSTM sweep with S cut for the interpret run:
 # (B, H, S, dh, JAX chunk)
 MLSTM_SWEEP = [(2, 3, 256, 64, 128), (1, 2, 128, 128, 64), (1, 4, 128, 256, 128)]
