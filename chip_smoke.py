@@ -7,17 +7,20 @@ Phases (any failure exits non-zero, with no result line):
   1. build every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, in parallel), print the card's name and power limit and
      each kernel's registers and spills, and count the HMMA (tensor-core)
-     instructions of each flash kernel in ``cuobjdump -sass``: the bf16
-     kernel must have some;
+     instructions of every kernel in ``cuobjdump -sass``: each bf16
+     flash, decode-walk and mLSTM kernel must have some, their fp32
+     kernels none (``MMA_KERNELS``);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, at the test tolerances (2e-5 and 2e-2 for
      attention, 1e-4 and 5e-2 for the RG-LRU scan), at the serving paths'
      shapes and at the edge cases (for the fused step also one and two
      slots with long lens, the split walk's few-slot ticks; for flash also
-     head dims the bf16 kernel pads); time the kernel, its plain version
-     and, where one exists, a PyTorch library call computing the same
-     function (a yardstick the port never calls); flash is timed in bf16
-     and fp32 (two kernels);
+     head dims the bf16 kernel pads); time the kernel on the device (CUDA
+     graph replay; the per-call enqueue time of eager launches beside it),
+     its plain version and, where one exists, a PyTorch library call
+     computing the same function (a yardstick the port never calls);
+     flash is timed in bf16 and fp32 (two kernels), the ring decode also
+     at qwen2.5-3b's striped shape, mLSTM also at a 128-token prompt;
   3. serve full-width qwen2.5-3b (36 layers, d_model 2048, random bf16
      weights from a seed) through ``ContinuousBatchingEngine`` with prefix
      sharing on, then through ``InferenceEngine`` and the striped
@@ -71,6 +74,9 @@ N_LAYERS = 36                  # qwen2.5-3b: every layer is attention
 HYBRID_ATTN, HYBRID_REC = 8, 18   # recurrentgemma-2b's 26 layers
 SSM_MLSTM, SSM_SLSTM = 42, 6      # xlstm-1.3b's 48 layers
 PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
+# further timed shapes of a kernel, beside its main one: flash's fp32
+# kernel, dh 256, the ring decode at qwen2.5-3b's shape, a short prompt
+EXTRA = ("fp32", "dh256", "qwen", "S128")
 
 
 def log(msg: str) -> None:
@@ -99,6 +105,36 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Device ms of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph after a warm-up, the graph replayed ``reps`` times between CUDA
+    events.  Launched one by one from Python, a kernel that takes less
+    than its wrapper's host work is timed at the host's enqueue rate; the
+    replay times the device alone."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def bound_ms(n_bytes: float, flops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -124,6 +160,47 @@ def hmma_counts(source: str):
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+# Kernel functions of each source whose bf16 instantiations run on the
+# tensor cores (HMMA > 0) and whose fp32 ones stay on the CUDA cores (no
+# HMMA): source -> {mangled-name fragment: dtype}.  A "Li0E" template
+# argument is the decode kernels' fp32 walk.
+MMA_KERNELS = {
+    "flash_attention": {"flash_mma_kernel": "bf16",
+                        "flash_attention_kernelIf": "fp32"},
+    "decode_attention": {"decode_attention_kernelI13__nv_bfloat16": "bf16",
+                         "decode_attention_kernelIfLi0E": "fp32"},
+    "paged_decode_step": {
+        "paged_decode_step_kernelI13__nv_bfloat16": "bf16",
+        "paged_decode_step_kernelIfLi0E": "fp32",
+        "paged_decode_attention_kernelI13__nv_bfloat16": "bf16",
+        "paged_decode_attention_kernelIfLi0E": "fp32"},
+    "mlstm_chunkwise": {"mlstm_scores_mma": "bf16",
+                        "mlstm_chunkwise_mma": "bf16",
+                        "mlstm_scores_kernelIf": "fp32",
+                        "mlstm_chunkwise_kernelIf": "fp32"},
+}
+
+
+def check_hmma() -> None:
+    """Print the HMMA count of every kernel function of MMA_KERNELS'
+    sources and assert each bf16 one has some and each fp32 one none;
+    every listed fragment must name at least one function."""
+    for source, kinds in MMA_KERNELS.items():
+        counts = hmma_counts(source)
+        for frag, kind in kinds.items():
+            fns = {fn: n for fn, n in counts.items() if frag in fn}
+            if not fns:
+                raise AssertionError(f"{source}: no kernel function named "
+                                     f"like {frag} in {sorted(counts)}")
+            for fn, n in sorted(fns.items()):
+                log(f"[sass {source}] {n} HMMA in {fn} ({kind})")
+                if (n > 0) != (kind == "bf16"):
+                    raise AssertionError(
+                        f"{source}: {fn} has {n} HMMA instructions; its "
+                        f"{kind} kernel must have "
+                        f"{'some' if kind == 'bf16' else 'none'}")
 
 
 # ------------------------------------------------------------ phase 2
@@ -503,17 +580,27 @@ def check_mlstm(errs, dtype_name):
 
 def time_mlstm():
     """One mLSTM layer's prefill at the serving shape: B=1, H=4, a
-    1024-token prompt, dh=1024, bf16.  The bound counts the two dh x dh
-    products per token (q C and the state update), the causal q k^T and
-    w v products inside each 64-token chunk and the n terms, at the bf16
-    peak; and each input, h and the final state once in memory."""
+    1024-token prompt, dh=1024, bf16; and (``"S128"``) a 128-token prompt,
+    where most serving prompts are and the 4 MiB-per-head state weighs
+    more."""
+    out = _time_mlstm(1024)
+    out["S128"] = _time_mlstm(128)
+    return out
+
+
+def _time_mlstm(S):
+    """The bound counts the two dh x dh products per token (q C and the
+    state update), the causal q k^T and w v products inside each 64-token
+    chunk and the n terms, at the bf16 peak; and each input, h and the
+    final state once in memory."""
     import torch
     from repro_torch.kernels import mlstm_chunkwise
     from repro_torch.kernels.ref import MLSTM_CHUNK, mlstm_chunkwise_ref
-    B, H, S, dh = 1, 4, 1024, 1024
+    B, H, dh = 1, 4, 1024
     gen = torch.Generator(device="cuda").manual_seed(22)
     args = _mlstm_inputs(gen, B, H, S, dh, "normal", torch.bfloat16)
-    ms = time_ms(lambda: mlstm_chunkwise(*args), iters=10)
+    ms = graph_ms(lambda: mlstm_chunkwise(*args), iters=10)
+    enq = time_ms(lambda: mlstm_chunkwise(*args), iters=10)
     plain = time_ms(lambda: mlstm_chunkwise_ref(*args), iters=5)
     BH = B * H
     pairs = sum(n * (n + 1) // 2 for n in
@@ -522,11 +609,11 @@ def time_mlstm():
     n_bytes = (BH * S * dh * 2 * 4 + BH * S * 4 * 2
                + BH * (dh * dh + dh + 1) * 4)
     b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
-            "shape": "B=1 H=4 S=1024 dh=1024 bf16, fresh state (library: "
-                     "none, no single PyTorch call computes the chunkwise "
-                     "mLSTM recurrence)"}
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "shape": f"B=1 H=4 S={S} dh=1024 bf16, fresh state (library: "
+                     f"none, no single PyTorch call computes the chunkwise "
+                     f"mLSTM recurrence)"}
 
 
 def time_paged_step():
@@ -563,7 +650,8 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
             fn(x["q"], x["kn"], x["vn"], k, v, x["table"], x["lens"],
                window=window)
         return call
-    ms = time_ms(run(paged_decode_step))
+    ms = graph_ms(run(paged_decode_step))
+    enq = time_ms(run(paged_decode_step))
     plain = time_ms(run(paged_decode_step_ref), iters=10)
     esz = 2
     stored = (lens - 1).clamp(min=0)
@@ -576,8 +664,8 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
                + sum(-(-int(n) // ps) for n in lens) * 4 + B * 4)
     flops = 4 * (stored + B) * KVH * g * dh
     b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": f"B=8 H={H} KVH={KVH} dh={dh} ps=16 MP={MP} window="
                      f"{window} bf16 lens={lens.tolist()} (library: none, "
                      f"no single PyTorch call appends into and attends over "
@@ -605,20 +693,21 @@ def _time_flash_qwen(dtype_name):
     f = lambda h: torch.randn((B, h, S, dh), generator=gen,
                               device="cuda").to(getattr(torch, dtype_name))
     q, k, v = f(H), f(KVH), f(KVH)
-    ms = time_ms(lambda: flash_attention(q, k, v))
+    ms = graph_ms(lambda: flash_attention(q, k, v))
+    enq = time_ms(lambda: flash_attention(q, k, v))
     plain = time_ms(lambda: flash_attention_ref(q, k, v), iters=10)
     kr = k.repeat_interleave(H // KVH, dim=1)
     vr = v.repeat_interleave(H // KVH, dim=1)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                         is_causal=True))
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                          is_causal=True))
     pairs = S * (S + 1) // 2
     flops = 4 * pairs * dh * H * B
     esz = q.element_size()
     n_bytes = esz * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
     b_ms, by = bound_ms(n_bytes, flops, dtype_name)
     kind = "bf16" if dtype_name == "bfloat16" else "fp32"
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib,
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
             "shape": f"B=1 H=16 KVH=2 S=1024 dh=128 causal {kind} "
                      f"(library: SDPA, GQA heads expanded outside the "
                      f"timing)"}
@@ -636,18 +725,19 @@ def time_flash_dh256():
     f = lambda h: torch.randn((B, h, S, dh), generator=gen,
                               device="cuda").to(torch.bfloat16)
     q, k, v = f(H), f(KVH), f(KVH)
-    ms = time_ms(lambda: flash_attention(q, k, v, window=2048), iters=10)
+    ms = graph_ms(lambda: flash_attention(q, k, v, window=2048), iters=10)
+    enq = time_ms(lambda: flash_attention(q, k, v, window=2048), iters=10)
     plain = time_ms(lambda: flash_attention_ref(q, k, v, window=2048),
                     iters=5)
     kr, vr = k.expand(B, H, S, dh).contiguous(), v.expand(B, H, S,
                                                           dh).contiguous()
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                         is_causal=True))
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                          is_causal=True))
     flops = 4 * (S * (S + 1) // 2) * dh * H * B
     n_bytes = 2 * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
     b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib,
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
             "shape": "B=1 H=10 KVH=1 S=2048 dh=256 causal window 2048 bf16 "
                      "(library: SDPA, KV head expanded outside the timing)"}
 
@@ -673,14 +763,15 @@ def time_paged_attention():
             it["i"] += 1
             fn(x["q"], k, v, x["table"], x["lens"])
         return call
-    ms = time_ms(run(paged_decode_attention))
+    ms = graph_ms(run(paged_decode_attention))
+    enq = time_ms(run(paged_decode_attention))
     plain = time_ms(run(paged_decode_attention_ref), iters=10)
     n = lens.sum().item()
     n_bytes = (2 * n * KVH * dh * 2 + 2 * B * H * dh * 2
                + sum(-(-int(m) // ps) for m in lens) * 4 + B * 4)
     b_ms, by = bound_ms(n_bytes, 4 * n * KVH * g * dh, "bfloat16")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": f"B=8 H=16 KVH=2 dh=128 ps=16 MP=128 bf16 lens="
                      f"{lens.tolist()} (library: none, no single PyTorch "
                      f"call attends over a paged pool)"}
@@ -689,14 +780,28 @@ def time_paged_attention():
 def time_decode():
     """A ring-decode step of recurrentgemma-2b's striped serving shape:
     8 slots with full wrapped rings of W = window = 2048, 10/1 heads,
-    dh 256, bf16; eight K/V copies cycled past the 50 MB L2."""
+    dh 256, bf16; and (``"qwen"``) qwen2.5-3b's striped shape: 8 slots of
+    a 2048-token cache mid-generation (the paged step's timed lens), 16/2
+    heads, dh 128, no window."""
+    import torch
+    W = 2048
+    out = _time_decode(10, 1, 256, [W + 37 * b for b in range(8)], W, 17)
+    lens = torch.randint(64, 1152, (8,),
+                         generator=torch.Generator().manual_seed(3))
+    out["qwen"] = _time_decode(16, 2, 128, lens.tolist(), None, 23)
+    return out
+
+
+def _time_decode(H, KVH, dh, fills, window, seed):
+    """B = 8 slots, W = 2048, bf16; eight K/V copies cycled past the 50 MB
+    L2.  The library yardstick is SDPA over the validity mask with the KV
+    heads expanded outside the timing."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
-    B, H, KVH, W, dh = 8, 10, 1, 2048, 256
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    fills = [W + 37 * b for b in range(B)]
+    B, W = 8, 2048
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, spos, pos = _ring_inputs(gen, B, H, KVH, W, dh, fills,
                                       torch.bfloat16)
     rings = [(k.clone(), v.clone()) for _ in range(8)]
@@ -706,27 +811,31 @@ def time_decode():
         def call():
             kk, vv = rings[it["i"] % len(rings)]
             it["i"] += 1
-            fn(q, kk, vv, spos, pos, window=W)
+            fn(q, kk, vv, spos, pos, window=window)
         return call
-    ms = time_ms(run(decode_attention))
+    ms = graph_ms(run(decode_attention))
+    enq = time_ms(run(decode_attention))
     plain = time_ms(run(decode_attention_ref), iters=10)
-    # library yardstick: SDPA over the validity mask, KV head expanded
-    # outside the timing (84 MB each, past the L2 without cycling)
     sp, p2 = spos.long(), pos.long()[:, None]
-    mask = ((sp >= 0) & (sp <= p2) & (p2 - sp < W))[:, None, None, :]
-    kx = k.permute(0, 2, 1, 3).expand(B, H, W, dh).contiguous()
-    vx = v.permute(0, 2, 1, 3).expand(B, H, W, dh).contiguous()
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
+    mask = (sp >= 0) & (sp <= p2)
+    if window is not None:
+        mask &= p2 - sp < window
+    mask = mask[:, None, None, :]
+    g = H // KVH
+    kx = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    vx = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kx, vx, attn_mask=mask))
     n_valid = int(mask.sum().item())
     n_bytes = (2 * n_valid * KVH * dh * 2 + 2 * B * H * dh * 2
                + B * W * 4 + B * 4)
     b_ms, by = bound_ms(n_bytes, 4 * n_valid * H * dh, "bfloat16")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib,
-            "shape": "B=8 H=10 KVH=1 W=2048 window 2048 dh=256 bf16, full "
-                     "wrapped rings (library: SDPA with the boolean "
-                     "validity mask, KV head expanded outside the timing)"}
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
+            "shape": f"B=8 H={H} KVH={KVH} W=2048 window {window} dh={dh} "
+                     f"bf16, fills {fills} (library: SDPA with the boolean "
+                     f"validity mask, KV heads expanded outside the "
+                     f"timing)"}
 
 
 def time_scan():
@@ -740,12 +849,13 @@ def time_scan():
     a = 0.7 + 0.299 * torch.rand((B, S, d), generator=gen, device="cuda")
     b = 0.1 * torch.randn((B, S, d), generator=gen, device="cuda")
     h0 = torch.randn((B, d), generator=gen, device="cuda")
-    ms = time_ms(lambda: rglru_scan(a, b, h0))
+    ms = graph_ms(lambda: rglru_scan(a, b, h0))
+    enq = time_ms(lambda: rglru_scan(a, b, h0))
     plain = time_ms(lambda: rglru_scan_ref(a, b, h0), iters=3, warmup=1)
     n_bytes = 3 * B * S * d * 4 + B * d * 4
     b_ms, by = bound_ms(n_bytes, 2 * B * S * d, "float32")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
+    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": "B=1 S=2048 d=2560 fp32 (library: none, no single "
                      "PyTorch call computes a linear recurrence)"}
 
@@ -1325,14 +1435,10 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Function properties" in line):
                 log(f"[ptxas {name}] {line.strip()}")
-    hmma = hmma_counts("flash_attention")
-    for fn, n in sorted(hmma.items()):
-        log(f"[sass flash_attention] {n} HMMA in {fn}")
-    mma = {fn: n for fn, n in hmma.items() if "flash_mma_kernel" in fn}
-    if not mma or min(mma.values()) <= 0:
-        raise AssertionError(f"the bf16 flash kernel has no HMMA "
-                             f"instruction: {hmma}")
+    check_hmma()
+    log(f"[phase] 1 (build, ptxas, sass) in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     errs = ErrLog()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1353,11 +1459,14 @@ def main() -> int:
               "decode_attention": time_decode(),
               "rglru_scan": time_scan(),
               "mlstm_chunkwise": time_mlstm()}
+    log(f"[phase] 2 (kernels against their plain versions, timings) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, t in timing.items():
-        for tag, tt in ((name, t), (f"{name} fp32", t.get("fp32")),
-                        (f"{name} dh256", t.get("dh256"))):
+        for tag, tt in [(name, t)] + [(f"{name} {x}", t[x]) for x in EXTRA
+                                      if x in t]:
             if tt:
-                log(f"[time] {tag}: kernel_ms={tt['ms']:.4f} plain_ms="
+                log(f"[time] {tag}: kernel_ms={tt['ms']:.5f} enqueue_ms="
+                    f"{tt['enqueue_ms']:.5f} plain_ms="
                     f"{tt['plain_ms']:.4f} library_ms={tt['library_ms']} "
                     f"bound_ms={tt['bound_ms']:.5f} ({tt['bound_by']}) at "
                     f"{tt['shape']}")
@@ -1417,7 +1526,7 @@ def main() -> int:
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]}
-        for extra in ("fp32", "dh256"):     # flash's fp32 kernel; dh 256
+        for extra in EXTRA:
             if extra in t:
                 entry[extra] = t[extra]
         kernels.append(entry)

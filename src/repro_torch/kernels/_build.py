@@ -121,6 +121,13 @@ def dtype_code(dtype) -> int:
     return codes[dtype]
 
 
+def aligned(t):
+    """``t`` contiguous and at a 16-byte aligned address (the kernels read
+    it in 16-byte vectors): a copy when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as an address."""
     import torch
@@ -128,13 +135,16 @@ def stream_of(t) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def n_split(name: str, pairs: int, n_tokens: int, device) -> int:
+def n_split(name: str, pairs: int, n_tokens: int, g: int, dh: int,
+            dtype: int, device) -> int:
     """How many CTAs share one (slot, KV head)'s walk in the decode kernels
     of ``csrc/<name>.cu``: chosen on the C side (``split_count`` in
-    ``decode_attend.cuh``) from the tile size and ``device``'s SM count, for
-    ``pairs`` walks of at most ``n_tokens``.  Cached: one library call per
-    (name, pairs, n_tokens, device)."""
-    fn = function(name, "decode_split_count", [ctypes.c_int] * 3)
-    n = fn(pairs, n_tokens, device.index)
+    ``decode_attend.cuh``) from the tile size, how many CTAs of the kernel
+    instance for (g query heads per KV head, dh, dtype code) fit on an SM,
+    and ``device``'s SM count, for ``pairs`` walks of at most ``n_tokens``.
+    Cached: one library call per argument set."""
+    fn = function(name, "decode_split_count", [ctypes.c_int] * 6)
+    n = fn(pairs, n_tokens, g, dh, dtype, device.index)
     check(max(-n, 0), f"{name} split count")
     return n
+

@@ -14,19 +14,20 @@
 // and V rows of dh elements and does 4·g·dh flops per row, far below the
 // ~295 flop/byte ridge, so the floor is the K/V bytes over 3.35 TB/s.
 //
-// Design: the page walk of the paged kernels (decode_attend.cuh) over the
-// ring: a CTA of 256 threads holds the g query heads of one (slot b, KV
-// head h), so each K/V row is read once for all g; 32-slot tiles are
-// loaded as 16-byte vectors one tile ahead; masked slots are skipped,
-// never multiplied by zero (fuzzed rings hold garbage there), and a tile
-// with no valid slot is not computed.  The W slots are split over n_split
-// CTAs per (b, h) (split_count picks n_split to fill the card: at the
-// recurrentgemma serving shape B·KVH is only 8, and with one CTA each the
-// kernel ran 2.3x slower than the plain version on an H100); a second
-// kernel merges the fp32 partials.  A row with no valid slot (the engines never make one: the new
-// token is written before the call) gives the uniform mean of V over the W
-// slots, as the plain version's all-masked softmax does.  Still simple:
-// CUDA-core math, no TMA, no wgmma.
+// Design: the walk of the paged kernels (decode_attend.cuh) over the
+// ring: a CTA holds the query heads of one (slot b, KV head h), so each K/V
+// row is read once for all of them; masked slots are skipped, never
+// multiplied by zero (fuzzed rings hold garbage there), and a tile with no
+// valid slot is not computed.  bf16 runs the tensor-core walk (mma.sync),
+// fp32 the CUDA-core one.  The W slots are split over n_split CTAs per
+// (b, h) (split_count picks n_split to fill the card: at the
+// recurrentgemma serving shape B·KVH is only 8), and the last CTA of each
+// (b, h) to arrive merges the fp32 partials in the same launch (a second,
+// combine, launch took 57% of the kernel's time at that shape on an H100,
+// and adds a host launch per layer to a host-bound path).  A row with no
+// valid slot (the engines never make one: the new token is written before
+// the call) gives the uniform mean of V over the W slots, as the plain
+// version's all-masked softmax does.
 #include "decode_attend.cuh"
 
 namespace {
@@ -55,101 +56,94 @@ __device__ __forceinline__ RingWalk ring_walk(const int* spos,
                   0, W, W};
 }
 
-// grid (B, KVH, n_split): split z of (b, h) writes its partial
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// grid (B, KVH · row tiles, n_split): split z of (b, h, row tile) walks
+// its share and writes its partial; the last of the pair's n_split CTAs
+// to arrive merges them.  DH: 0 for the fp32 walk, else the bf16 bucket.
+template <typename T, int DH>
+__global__ void __launch_bounds__(walk_threads(DH), walk_min_blocks(DH))
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ spos,
-                        const int* __restrict__ pos, float* __restrict__ part,
-                        int H, int KVH, int dh, int W, int window,
-                        float scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
+                        const int* __restrict__ pos, T* __restrict__ out,
+                        float* part, int* arrived, int H, int KVH, int dh,
+                        int W, int window, float scale) {
   const int g = H / KVH;
+  const Place at(KVH, g, DH != 0, 0);
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), g, dh);
   const long long row_stride = (long long)KVH * dh;
-
-  load_q(s, q + ((long long)b * H + kvh * g) * dh, g, dh, scale);
-  const RingWalk walk = split_walk(ring_walk(spos, pos, b, W, window),
-                                   blockIdx.z, gridDim.z);
-  attend<T>(s, walk, k + (long long)kvh * dh, v + (long long)kvh * dh, g, dh,
-            row_stride);
-  write_partial(s, part + (((long long)b * KVH + kvh) * gridDim.z
-                           + blockIdx.z) * g * (dh + 2), g, dh);
+  float* po = at.po(part, g, dh);
+  float* pml = at.pml(part, KVH, g, dh);
+  const T* qr = q + ((long long)at.b * H + at.kvh * g + at.r0) * dh;
+  const T* vb = v + (long long)at.kvh * dh;
+  const RingWalk whole = ring_walk(spos, pos, at.b, W, window);
+  walk_share<T, DH>(split_walk(whole, blockIdx.z, gridDim.z), qr,
+                    k + (long long)at.kvh * dh, vb, at.rows, dh, row_stride,
+                    scale, po + (long long)blockIdx.z * g * dh,
+                    pml + 2LL * blockIdx.z * g, smem4);
+  merge_pair<T>(at.counter(arrived), gridDim.z, po, pml, gridDim.z, g,
+                at.rows, dh, whole, vb, row_stride,
+                out + ((long long)at.b * H + at.kvh * g + at.r0) * dh,
+                reinterpret_cast<float*>(smem4));
 }
 
-// grid (B, KVH): merge the n_split partials of (b, h)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_combine(const float* __restrict__ part,
-                         const T* __restrict__ v,
-                         const int* __restrict__ spos,
-                         const int* __restrict__ pos, T* __restrict__ out,
-                         int H, int KVH, int dh, int W, int window,
-                         int n_split) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int g = H / KVH;
-  combine<T>(part + ((long long)b * KVH + kvh) * n_split * g * (dh + 2),
-             n_split, ring_walk(spos, pos, b, W, window),
-             out + ((long long)b * H + kvh * g) * dh,
-             v + (long long)kvh * dh, g, dh, (long long)KVH * dh);
-}
-
-template <typename T>
+template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const int* spos,
-           const int* pos, void* out, float* part, int B, int H, int KVH,
-           int dh, int W, int window, int n_split, float scale,
-           cudaStream_t stream) {
-  if (!attend_dh_ok<T>(dh) || KVH <= 0 || H % KVH || W <= 0 || n_split <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * attend_smem_floats(H / KVH, dh);
+           const int* pos, void* out, float* part, int* arrived, int B,
+           int H, int KVH, int dh, int W, int window, int n_split,
+           float scale, cudaStream_t stream) {
+  const int g = H / KVH;
+  const size_t smem = launch_smem<DH>(g, dh, n_split, 0);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<T>,
+      decode_attention_kernel<T, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decode_attention_kernel<T><<<dim3(B, KVH, n_split), kThreads, smem,
-                               stream>>>(
+  decode_attention_kernel<T, DH><<<dim3(B, KVH * row_tiles(DH, g), n_split),
+                                   walk_threads(DH), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), spos, pos, part, H, KVH, dh, W, window,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_attention_combine<T><<<dim3(B, KVH), kThreads, 0, stream>>>(
-      part, static_cast<const T*>(v), spos, pos, static_cast<T*>(out), H,
-      KVH, dh, W, window, n_split);
+      static_cast<const T*>(v), spos, pos, static_cast<T*>(out), part,
+      arrived, H, KVH, dh, W, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int splits(int pairs, int n_tokens, int g, int dh, int device) {
+  return split_count(decode_attention_kernel<T, DH>, walk_threads(DH),
+                     walk_smem_bytes(DH, g, dh), pairs * row_tiles(DH, g),
+                     n_tokens, device);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// part: fp32 scratch of B·KVH·n_split·(H/KVH)·(dh+2) floats.
-// Returns the cudaError_t of the launches (0 = launched).
+// dtype: 0 = float32 (CUDA-core walk), 1 = bfloat16 (tensor-core walk).
+// window <= 0 means no window.  part: fp32 scratch of
+// B·KVH·n_split·(H/KVH)·(dh+2) floats; arrived: B·KVH·ceil(H/KVH / 16)
+// int32 arrival counters, zero on entry and left zero by the launch (calls
+// sharing them must be ordered, e.g. on one stream).  Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* spos,
                                        const void* pos, void* out, void* part,
-                                       int B, int H, int KVH, int dh, int W,
-                                       int window, int n_split, float scale,
-                                       int dtype, void* stream) {
+                                       void* arrived, int B, int H, int KVH,
+                                       int dh, int W, int window, int n_split,
+                                       float scale, int dtype, void* stream) {
   const int* sp = static_cast<const int*>(spos);
   const int* ps = static_cast<const int*>(pos);
   float* pt = static_cast<float*>(part);
+  int* ar = static_cast<int*>(arrived);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!decode_dh_ok(dh) || KVH <= 0 || H % KVH || W <= 0 || n_split <= 0)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if (dtype == 0)
-    return launch<float>(q, k, v, sp, ps, out, pt, B, H, KVH, dh, W, window,
-                         n_split, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, sp, ps, out, pt, B, H, KVH, dh, W,
-                                 window, n_split, scale, s);
-  return (int)cudaErrorInvalidValue;
+  DISPATCH(launch, q, k, v, sp, ps, out, pt, ar, B, H, KVH, dh, W, window,
+           n_split, scale, s);
 }
 
-// n_split for decode_attention_launch / paged_decode_attention_launch
-// (split_count in decode_attend.cuh); device is the CUDA device ordinal.
-extern "C" int decode_split_count(int pairs, int n_tokens, int device) {
-  return split_count(pairs, n_tokens, device);
+// n_split for decode_attention_launch (split_count in decode_attend.cuh,
+// for the kernel instance that dtype and dh select); pairs = B·KVH,
+// device the CUDA device ordinal.
+extern "C" int decode_split_count(int pairs, int n_tokens, int g, int dh,
+                                  int dtype, int device) {
+  if (!decode_dh_ok(dh) || g <= 0 || (dtype != 0 && dtype != 1))
+    return -(int)cudaErrorInvalidValue;
+  DISPATCH(splits, pairs, n_tokens, g, dh, device);
 }

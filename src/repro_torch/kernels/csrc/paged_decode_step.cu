@@ -20,33 +20,30 @@
 // (g = H/KVH query heads), far below the ~295 flop/byte ridge, so the
 // floor is the K/V bytes over 3.35 TB/s.
 //
-// Design: CTAs of 256 threads, each holding the g query heads of one KV
-// head, walk the slot's page table themselves (decode_attend.cuh),
-// bounded by lens[b] rather than by the table's full width as the TPU
-// grid was; a tile whose pages are all unallocated is skipped.  Both
-// entry points split each (slot b, KV head) walk over n_split CTAs
-// (split_walk), as flash-decoding does: with few slots, one CTA each
-// would leave most of the 132 SMs idle.  Each CTA writes its unnormalised
-// fp32 partial (acc, m, l).
-//   The fused step merges in the same launch: each CTA fences its partial
-//   and bumps the pair's arrival counter; the CTA that arrives last merges
-//   the n_split partials, merges the new token analytically from the
-//   operand (as the TPU kernel does), normalises, and resets the counter
-//   to 0 for the next call.  One launch per layer and tick, as before the
-//   split: a second launch would add host work to a host-bound path.
-//   Split 0 appends the new token; the walk reads [begin, n1) and the
-//   append writes position n1, so the splits never race it.  (A stale
-//   lens past the table's MP·ps positions clamps the append into the last
-//   table column, inside the walk: the split whose share holds that row
-//   appends it and reads it back after a barrier, as the plain version
-//   writes the pool before reading it.)
-//   The read-only form merges in a second kernel (combine), and keeps the
-//   TPU kernel's semantics for a row with no valid token (lens == 0): the
-//   uniform mean of V over all MP·ps table entries, unallocated ones read
-//   from the trash page.  The step always attends the new token, so that
-//   case cannot arise there.
-// Still simple: the per-CTA walk converts K/V tiles to fp32 in shared
-// memory and runs on the CUDA cores; no TMA, no mma.
+// Design: CTAs, each holding query heads of one KV head, walk the slot's
+// page table themselves (decode_attend.cuh), bounded by lens[b] rather
+// than by the table's full width as the TPU grid was; a tile whose pages
+// are all unallocated is skipped.  bf16 runs the tensor-core walk
+// (mma.sync), fp32 the CUDA-core one.  Both entry points split each (slot
+// b, KV head) walk over n_split CTAs (split_walk), as flash-decoding does:
+// with few slots, one CTA each would leave most of the 132 SMs idle.  Each
+// CTA writes its unnormalised fp32 partial and the last to arrive merges
+// them in the same launch (merge_pair): one launch per layer and tick, as
+// a second launch would add host work to a host-bound path.
+//   The fused step attends the new token from the operand (as the TPU
+//   kernel does): the CTA that appends it also writes it as one more
+//   partial of its pair (score q·k_new, l = 1, value v_new), so the merge
+//   is the read-only form's.  Split 0 appends the new token; the walk reads
+//   [begin, n1) and the append writes position n1, so the splits never
+//   race it.  (A stale lens past the table's MP·ps positions clamps the
+//   append into the last table column, inside the walk: the split whose
+//   share holds that row appends it and reads it back after a barrier, as
+//   the plain version writes the pool before reading it.  With g > 16
+//   heads in bf16, each row tile's CTAs append the same bytes.)
+//   The read-only form keeps the TPU kernel's semantics for a row with no
+//   valid token (lens == 0): the uniform mean of V over all MP·ps table
+//   entries, unallocated ones read from the trash page.  The step always
+//   attends the new token, so that case cannot arise there.
 //
 // Trash page race: every FREE slot (table row all -1) appends to the trash
 // page, possibly at the same row, from different CTAs in no order.  That
@@ -90,39 +87,37 @@ __device__ __forceinline__ PagedWalk paged_walk(const int* table, int b,
                    n_all};
 }
 
-// grid (B, KVH, n_split): split z of (b, h) walks its share and writes its
-// partial; the last of the pair's n_split CTAs to arrive merges them with
-// the new token.  Dynamic shared memory: attend_smem_floats(g, dh) +
-// g·n_split floats (the merge weights).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// grid (B, KVH · row tiles, n_split): split z of (b, h, row tile) walks its
+// share and writes its partial; the last of the n_split CTAs to arrive
+// merges them with the new token.  DH: 0 for the fp32 walk, else the bf16
+// bucket.
+template <typename T, int DH>
+__global__ void __launch_bounds__(walk_threads(DH), walk_min_blocks(DH))
 paged_decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                          const T* __restrict__ v_new, T* k_pages, T* v_pages,
                          const int* __restrict__ table,
                          const int* __restrict__ lens, T* __restrict__ out,
                          float* part, int* arrived, int H, int KVH, int dh,
                          int P, int ps, int MP, int window, float scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int z = blockIdx.z;
-  const int n_split = gridDim.z;
   const int g = H / KVH;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const Place at(KVH, g, DH != 0, 1);
+  const int b = at.b, z = blockIdx.z, n_split = gridDim.z;
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), g, dh);
-  __shared__ int is_last;
 
   const int n = lens[b];
   const int n1 = n - 1 > 0 ? n - 1 : 0;   // stored tokens; append position
   const long long row_stride = (long long)KVH * dh;   // one token row
-  const T* kn = k_new + ((long long)b * KVH + kvh) * dh;
-  const T* vn = v_new + ((long long)b * KVH + kvh) * dh;
+  const T* kn = k_new + at.pair * dh;
+  const T* vn = v_new + at.pair * dh;
   const PagedWalk whole = paged_walk(table, b, ps, MP, P, n1, n1, window);
   const PagedWalk walk = split_walk(whole, z, n_split);
 
-  // ---- append: the new token at position n1 of its page (FREE -> trash)
+  float* po = at.po(part, g, dh);
+  float* pml = at.pml(part, KVH, g, dh);
+  const T* qr = q + ((long long)b * H + at.kvh * g + at.r0) * dh;
+
+  // ---- append: the new token at position n1 of its page (FREE -> trash),
+  // and its partial (entry n_split)
   int col = n1 / ps;
   if (col > MP - 1) col = MP - 1;
   const int t_app = col * ps + n1 % ps;   // == n1 unless lens is stale
@@ -131,151 +126,74 @@ paged_decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     int pg = table[(long long)b * MP + col];
     if (pg < 0) pg = P - 1;
     const long long off = ((long long)pg * ps + n1 % ps) * row_stride
-                          + (long long)kvh * dh;
-    for (int d = tid; d < dh; d += kThreads) {
+                          + (long long)at.kvh * dh;
+    for (int d = threadIdx.x; d < dh; d += blockDim.x) {
       k_pages[off + d] = kn[d];
       v_pages[off + d] = vn[d];
     }
+    new_token_partial(qr, kn, vn, at.rows, dh, scale * kLog2e,
+                      po + (long long)n_split * g * dh,
+                      pml + 2LL * n_split * g);
   }
   __syncthreads();                        // the appender reads its row back
 
-  load_q(s, q + ((long long)b * H + kvh * g) * dh, g, dh, scale);
-  attend<T>(s, walk, k_pages + (long long)kvh * dh,
-            v_pages + (long long)kvh * dh, g, dh, row_stride);
-  const int pair = b * KVH + kvh;
-  const int stride = g * (dh + 2);        // floats of one partial
-  float* pp = part + (long long)pair * n_split * stride;
-  write_partial(s, pp + (long long)z * stride, g, dh);
-
-  // ---- arrival: the last CTA of the pair merges
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(arrived + pair, 1) == n_split - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-  // per head: the new token's score (always attended: distance 0), the
-  // merged max m, each split's weight e^{m_z - m} and 1 / the denominator.
-  // Partials of other CTAs are read through L2 (__ldcg), never a stale L1.
-  float* wts = s.c + g;      // past carve()'s arrays: g × n_split floats
-  for (int gi = warp; gi < g; gi += kWarps) {
-    float sc = 0.f;
-    for (int d = lane; d < dh; d += 32) sc = fmaf(s.q[gi * dh + d], to_f(kn[d]), sc);
-    sc = warp_sum(sc);
-    const float* ph = pp + gi * (dh + 2);
-    float m = sc;
-    for (int zz = lane; zz < n_split; zz += 32)
-      if (__ldcg(ph + zz * stride + dh + 1) > 0.f)
-        m = fmaxf(m, __ldcg(ph + zz * stride + dh));
-    m = warp_max(m);
-    float den = 0.f;
-    for (int zz = lane; zz < n_split; zz += 32) {
-      const float l = __ldcg(ph + zz * stride + dh + 1);
-      const float w = l > 0.f ? expf(__ldcg(ph + zz * stride + dh) - m) : 0.f;
-      wts[gi * n_split + zz] = w;
-      den = fmaf(w, l, den);
-    }
-    den = warp_sum(den);
-    if (lane == 0) {
-      const float pn = expf(sc - m);
-      s.c[gi] = pn;
-      s.l[gi] = 1.f / (den + pn);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < g * dh; i += kThreads) {
-    const int gi = i / dh, d = i % dh;
-    const float* ph = pp + gi * (dh + 2) + d;
-    const float* wg = wts + gi * n_split;
-    float num = s.c[gi] * to_f(vn[d]);
-    for (int zz = 0; zz < n_split; ++zz)
-      if (wg[zz] > 0.f) num = fmaf(wg[zz], __ldcg(ph + zz * stride), num);
-    out[((long long)b * H + kvh * g) * dh + i] = from_f<T>(num * s.l[gi]);
-  }
-  if (tid == 0) arrived[pair] = 0;        // ready for the next call
+  const T* vb = v_pages + (long long)at.kvh * dh;
+  walk_share<T, DH>(walk, qr, k_pages + (long long)at.kvh * dh, vb, at.rows,
+                    dh, row_stride, scale, po + (long long)z * g * dh,
+                    pml + 2LL * z * g, smem4);
+  merge_pair<T>(at.counter(arrived), n_split, po, pml, n_split + 1, g,
+                at.rows, dh, whole, vb, row_stride,
+                out + ((long long)b * H + at.kvh * g + at.r0) * dh,
+                reinterpret_cast<float*>(smem4));
 }
 
-// grid (B, KVH, n_split): split z of (b, h) writes its partial
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// grid (B, KVH · row tiles, n_split): the read-only form of the above
+template <typename T, int DH>
+__global__ void __launch_bounds__(walk_threads(DH), walk_min_blocks(DH))
 paged_decode_attention_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
                               const int* __restrict__ table,
                               const int* __restrict__ lens,
-                              float* __restrict__ part, int H, int KVH,
-                              int dh, int P, int ps, int MP, int window,
-                              float scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
+                              T* __restrict__ out, float* part, int* arrived,
+                              int H, int KVH, int dh, int P, int ps, int MP,
+                              int window, float scale) {
   const int g = H / KVH;
+  const Place at(KVH, g, DH != 0, 0);
+  const int n = lens[at.b] > 0 ? lens[at.b] : 0;
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), g, dh);
-  const int n = lens[b] > 0 ? lens[b] : 0;
-
-  load_q(s, q + ((long long)b * H + kvh * g) * dh, g, dh, scale);
-  const PagedWalk walk = split_walk(
-      paged_walk(table, b, ps, MP, P, n, n - 1, window), blockIdx.z,
-      gridDim.z);
-  attend<T>(s, walk, k_pages + (long long)kvh * dh,
-            v_pages + (long long)kvh * dh, g, dh, (long long)KVH * dh);
-  write_partial(s, part + (((long long)b * KVH + kvh) * gridDim.z
-                           + blockIdx.z) * g * (dh + 2), g, dh);
+  const PagedWalk whole = paged_walk(table, at.b, ps, MP, P, n, n - 1,
+                                     window);
+  float* po = at.po(part, g, dh);
+  float* pml = at.pml(part, KVH, g, dh);
+  const T* qr = q + ((long long)at.b * H + at.kvh * g + at.r0) * dh;
+  const T* vb = v_pages + (long long)at.kvh * dh;
+  const long long row_stride = (long long)KVH * dh;
+  walk_share<T, DH>(split_walk(whole, blockIdx.z, gridDim.z), qr,
+                    k_pages + (long long)at.kvh * dh, vb, at.rows, dh,
+                    row_stride, scale, po + (long long)blockIdx.z * g * dh,
+                    pml + 2LL * blockIdx.z * g, smem4);
+  merge_pair<T>(at.counter(arrived), gridDim.z, po, pml, gridDim.z, g,
+                at.rows, dh, whole, vb, row_stride,
+                out + ((long long)at.b * H + at.kvh * g + at.r0) * dh,
+                reinterpret_cast<float*>(smem4));
 }
 
-// grid (B, KVH): merge the n_split partials of (b, h)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_attention_combine(const float* __restrict__ part,
-                               const T* __restrict__ v_pages,
-                               const int* __restrict__ table,
-                               const int* __restrict__ lens,
-                               T* __restrict__ out, int H, int KVH, int dh,
-                               int P, int ps, int MP, int window,
-                               int n_split) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int g = H / KVH;
-  const int n = lens[b] > 0 ? lens[b] : 0;
-  combine<T>(part + ((long long)b * KVH + kvh) * n_split * g * (dh + 2),
-             n_split, paged_walk(table, b, ps, MP, P, n, n - 1, window),
-             out + ((long long)b * H + kvh * g) * dh,
-             v_pages + (long long)kvh * dh, g, dh, (long long)KVH * dh);
-}
-
-inline int set_smem(const void* kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// The step's n_split, cut where the merge weights would not fit the
-// shared memory a CTA may use (227 KB, less the kernel's static is_last).
-inline int step_splits(int g, int dh, int n_split) {
-  constexpr size_t kMaxSmemFloats = (232448 - 16) / sizeof(float);
-  const size_t base = attend_smem_floats(g, dh);
-  if (base >= kMaxSmemFloats) return 1;
-  const size_t fit = (kMaxSmemFloats - base) / g;
-  return (size_t)n_split < fit ? n_split : (fit > 1 ? (int)fit : 1);
-}
-
-template <typename T>
+template <typename T, int DH>
 int launch_step(const void* q, const void* k_new, const void* v_new,
                 void* k_pages, void* v_pages, const int* table,
                 const int* lens, void* out, float* part, int* arrived, int B,
                 int H, int KVH, int dh, int P, int ps, int MP, int window,
                 int n_split, float scale, cudaStream_t stream) {
-  if (!attend_dh_ok<T>(dh) || KVH <= 0 || H % KVH || n_split <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
   const int g = H / KVH;
-  n_split = step_splits(g, dh, n_split);
-  const size_t smem = sizeof(float) * (attend_smem_floats(g, dh)
-                                       + (size_t)g * n_split);
-  const int err = set_smem((const void*)paged_decode_step_kernel<T>, smem);
-  if (err) return err;
-  paged_decode_step_kernel<T><<<dim3(B, KVH, n_split), kThreads, smem,
-                                stream>>>(
+  const size_t smem = launch_smem<DH>(g, dh, n_split, 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_step_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_step_kernel<T, DH><<<dim3(B, KVH * row_tiles(DH, g),
+                                         n_split),
+                                    walk_threads(DH), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_pages),
       static_cast<T*>(v_pages), table, lens, static_cast<T*>(out), part,
@@ -283,81 +201,81 @@ int launch_step(const void* q, const void* k_new, const void* v_new,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DH>
 int launch_attn(const void* q, const void* k_pages, const void* v_pages,
                 const int* table, const int* lens, void* out, float* part,
-                int B, int H, int KVH, int dh, int P, int ps, int MP,
-                int window, int n_split, float scale, cudaStream_t stream) {
-  if (!attend_dh_ok<T>(dh) || KVH <= 0 || H % KVH || n_split <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * attend_smem_floats(H / KVH, dh);
-  int err = set_smem((const void*)paged_decode_attention_kernel<T>, smem);
-  if (err) return err;
-  paged_decode_attention_kernel<T><<<dim3(B, KVH, n_split), kThreads, smem,
-                                     stream>>>(
+                int* arrived, int B, int H, int KVH, int dh, int P, int ps,
+                int MP, int window, int n_split, float scale,
+                cudaStream_t stream) {
+  const int g = H / KVH;
+  const size_t smem = launch_smem<DH>(g, dh, n_split, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_attention_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_attention_kernel<T, DH><<<dim3(B, KVH * row_tiles(DH, g),
+                                              n_split),
+                                         walk_threads(DH), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), table, lens, part, H, KVH, dh, P, ps,
-      MP, window, scale);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  paged_decode_attention_combine<T><<<dim3(B, KVH), kThreads, 0, stream>>>(
-      part, static_cast<const T*>(v_pages), table, lens,
-      static_cast<T*>(out), H, KVH, dh, P, ps, MP, window, n_split);
+      static_cast<const T*>(v_pages), table, lens, static_cast<T*>(out),
+      part, arrived, H, KVH, dh, P, ps, MP, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int splits(int pairs, int n_tokens, int g, int dh, int device) {
+  return split_count(paged_decode_step_kernel<T, DH>, walk_threads(DH),
+                     walk_smem_bytes(DH, g, dh), pairs * row_tiles(DH, g),
+                     n_tokens, device);
+}
+
+inline bool args_ok(int H, int KVH, int dh, int n_split) {
+  return decode_dh_ok(dh) && KVH > 0 && H % KVH == 0 && n_split > 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// Both return the cudaError_t of the launch (0 = launched).
-// part: fp32 scratch of B·KVH·n_split·(H/KVH)·(dh+2) floats; arrived: B·KVH
-// int32 arrival counters, zero on entry and left zero by the launch (calls
-// sharing them must be ordered, e.g. on one stream).
+// dtype: 0 = float32 (CUDA-core walk), 1 = bfloat16 (tensor-core walk).
+// window <= 0 means no window.  Both return the cudaError_t of the launch
+// (0 = launched).  part: fp32 scratch of B·KVH·(n_split+1)·(H/KVH)·(dh+2)
+// floats for the step (the new token is one more entry), n_split in
+// place of n_split+1 for the read-only form; arrived: B·KVH·ceil(H/KVH / 16) int32 arrival counters, zero on
+// entry and left zero by the launch (calls sharing them must be ordered,
+// e.g. on one stream).
+
 extern "C" int paged_decode_step_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* table, const void* lens, void* out,
     void* part, void* arrived, int B, int H, int KVH, int dh, int P, int ps,
     int MP, int window, int n_split, float scale, int dtype, void* stream) {
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lens);
-  float* pt = static_cast<float*>(part);
-  int* ar = static_cast<int*>(arrived);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_step<float>(q, k_new, v_new, k_pages, v_pages, tb, ln, out,
-                              pt, ar, B, H, KVH, dh, P, ps, MP, window,
-                              n_split, scale, s);
-  if (dtype == 1)
-    return launch_step<__nv_bfloat16>(q, k_new, v_new, k_pages, v_pages, tb,
-                                      ln, out, pt, ar, B, H, KVH, dh, P, ps,
-                                      MP, window, n_split, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (!args_ok(H, KVH, dh, n_split)) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  DISPATCH(launch_step, q, k_new, v_new, k_pages, v_pages,
+           static_cast<const int*>(table), static_cast<const int*>(lens), out,
+           static_cast<float*>(part), static_cast<int*>(arrived), B, H, KVH,
+           dh, P, ps, MP, window, n_split, scale,
+           static_cast<cudaStream_t>(stream));
 }
 
-// part: fp32 scratch of B·KVH·n_split·(H/KVH)·(dh+2) floats.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* table, const void* lens, void* out, void* part, int B, int H,
-    int KVH, int dh, int P, int ps, int MP, int window, int n_split,
-    float scale, int dtype, void* stream) {
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lens);
-  float* pt = static_cast<float*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const void* table, const void* lens, void* out, void* part,
+    void* arrived, int B, int H, int KVH, int dh, int P, int ps, int MP,
+    int window, int n_split, float scale, int dtype, void* stream) {
+  if (!args_ok(H, KVH, dh, n_split)) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if (dtype == 0)
-    return launch_attn<float>(q, k_pages, v_pages, tb, ln, out, pt, B, H,
-                              KVH, dh, P, ps, MP, window, n_split, scale, s);
-  if (dtype == 1)
-    return launch_attn<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, out, pt, B,
-                                      H, KVH, dh, P, ps, MP, window, n_split,
-                                      scale, s);
-  return (int)cudaErrorInvalidValue;
+  DISPATCH(launch_attn, q, k_pages, v_pages, static_cast<const int*>(table),
+           static_cast<const int*>(lens), out, static_cast<float*>(part),
+           static_cast<int*>(arrived), B, H, KVH, dh, P, ps, MP, window,
+           n_split, scale, static_cast<cudaStream_t>(stream));
 }
 
-// n_split for decode_attention_launch, paged_decode_attention_launch and
-// paged_decode_step_launch (split_count in decode_attend.cuh); device is
+// n_split for both entry points (split_count in decode_attend.cuh, for the
+// step's kernel instance that dtype and dh select); pairs = B·KVH, device
 // the CUDA device ordinal.
-extern "C" int decode_split_count(int pairs, int n_tokens, int device) {
-  return split_count(pairs, n_tokens, device);
+extern "C" int decode_split_count(int pairs, int n_tokens, int g, int dh,
+                                  int dtype, int device) {
+  if (!decode_dh_ok(dh) || g <= 0 || (dtype != 0 && dtype != 1))
+    return -(int)cudaErrorInvalidValue;
+  DISPATCH(splits, pairs, n_tokens, g, dh, device);
 }

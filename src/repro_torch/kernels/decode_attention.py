@@ -20,15 +20,20 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import decode_arrivals
 from repro_torch.kernels.ref import decode_attention_ref
 
 MAX_HEAD_DIM = 256
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def decode_attention(q, k, v, spos, pos, *, window=None):
     """q: (B,H,dh), k/v: (B,W,KVH,dh), spos: (B,W), pos: (B,) -> (B,H,dh).
+    One launch: the ring is split over CTAs that merge in the same launch
+    through the decode kernels' shared arrival counters
+    (``paged_attention.decode_arrivals``; calls on one device must be
+    serialised, as they are on its current stream).
     ``decode_attention.launches`` counts the kernel launches (CPU calls
     are not counted)."""
     if q.device.type == "cpu":
@@ -54,19 +59,22 @@ def decode_attention(q, k, v, spos, pos, *, window=None):
     if any(t.device != q.device for t in (k, v, spos, pos)):
         raise ValueError("decode_attention operands must share one device")
     code = _build.dtype_code(q.dtype)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = map(_build.aligned, (q, k, v))
     spos = spos.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    splits = _build.n_split("decode_attention", B * KVH, W, q.device)
-    part = torch.empty((B * KVH * splits * (H // KVH) * (dh + 2),),
+    g = H // KVH
+    splits = _build.n_split("decode_attention", B * KVH, W, g, dh, code,
+                            q.device)
+    part = torch.empty((B * KVH * splits * g * (dh + 2),),
                        dtype=torch.float32, device=q.device)
+    arrived = decode_arrivals(q.device, B, KVH, g)
     fn = _build.function("decode_attention", "decode_attention_launch",
                          _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), spos.data_ptr(),
-             pos.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, KVH, dh,
-             W, window or 0, splits, 1.0 / math.sqrt(dh), code,
-             _build.stream_of(q))
+             pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+             arrived.data_ptr(), B, H, KVH, dh, W, window or 0, splits,
+             1.0 / math.sqrt(dh), code, _build.stream_of(q))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

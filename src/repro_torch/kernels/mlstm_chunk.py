@@ -26,11 +26,6 @@ _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _F32 = torch.float32
 
 
-def _aligned(t):
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, state=None):
     """q, k, v: (B,H,S,dh); i_pre, f_pre: (B,H,S); ``state`` (C, n, m) to
     start from, or None for a fresh one.  Returns (h, (C, n, m)).
@@ -55,7 +50,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state=None):
     if any(t.device != q.device for t in (k, v, i_pre, f_pre)):
         raise ValueError("mlstm_chunkwise operands must share one device")
     code = _build.dtype_code(q.dtype)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = map(_build.aligned, (q, k, v))
     i_pre = i_pre.to(_F32).contiguous()
     f_pre = f_pre.to(_F32).contiguous()
     BH = B * H

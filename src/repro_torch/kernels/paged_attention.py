@@ -28,21 +28,39 @@ from repro_torch.kernels.ref import (paged_decode_attention_ref,
 MAX_HEAD_DIM = 256
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_ATTN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+_ATTN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# query heads of one row tile of the bf16 decode walk (kRows in
+# csrc/decode_attend.cuh)
+_ROWS = 16
 
-
-# the step's int32 arrival counters, one per (slot, KV head), per device:
-# zeroed once when allocated (or grown), and left zero by every launch
+# The decode kernels' int32 arrival counters, per device, shared by all
+# three entry points (this module's two and ``decode_attention``): one per
+# (slot, KV head, row tile), zeroed once when allocated (or grown), and
+# left zero by every launch.  Calls on one device must therefore be
+# serialised, as they are on its current stream.
 _ARRIVALS = {}
 
 
-def _step_arrivals(device, pairs: int):
+def decode_arrivals(device, B: int, KVH: int, g: int):
+    """The counters for a launch over B slots of KVH KV heads with g query
+    heads each."""
+    pairs = B * KVH * -(-g // _ROWS)
     arrived = _ARRIVALS.get(device)
     if arrived is None or arrived.numel() < pairs:
         arrived = torch.zeros((pairs,), dtype=torch.int32, device=device)
         _ARRIVALS[device] = arrived
     return arrived
+
+
+def _splits_and_scratch(B, KVH, g, dh, n_tokens, code, device, extra=0):
+    """(n_split, fp32 partials) of one paged launch: n_split + ``extra``
+    entries a (slot, KV head) (the step's new token is one more)."""
+    splits = _build.n_split("paged_decode_step", B * KVH, n_tokens, g, dh,
+                            code, device)
+    part = torch.empty((B * KVH * (splits + extra) * g * (dh + 2),),
+                       dtype=torch.float32, device=device)
+    return splits, part
 
 
 def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
@@ -54,9 +72,9 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
     On CUDA each (slot, KV head) walk is split over n_split CTAs that merge
     in the same launch through a per-device buffer of arrival counters.
     Per call the wrapper adds no library call and no zeroing launch: the
-    split count is cached per (B·KVH, MP·ps, device) (``_build.n_split``),
-    the counters are allocated and zeroed once per device (``_ARRIVALS``,
-    grown when B·KVH grows) and every launch leaves them zero, and the fp32
+    split count is cached per shape and device (``_build.n_split``), the
+    counters are allocated and zeroed once per device (``_ARRIVALS``,
+    grown when needed) and every launch leaves them zero, and the fp32
     partials come from the caching allocator.  Calls on one device must
     therefore be serialised, as they are on its current stream."""
     if q.device.type == "cpu":
@@ -89,16 +107,15 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_step operands must share one device")
     code = _build.dtype_code(q.dtype)
-    q = q.contiguous()
-    k_new = k_new.to(k_pages.dtype).contiguous()
-    v_new = v_new.to(k_pages.dtype).contiguous()
+    q = _build.aligned(q)
+    k_new = _build.aligned(k_new.to(k_pages.dtype))
+    v_new = _build.aligned(v_new.to(k_pages.dtype))
     table = page_table.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    splits = _build.n_split("paged_decode_step", B * KVH, MP * ps, q.device)
-    part = torch.empty((B * KVH * splits * (H // KVH) * (dh + 2),),
-                       dtype=torch.float32, device=q.device)
-    arrived = _step_arrivals(q.device, B * KVH)
+    splits, part = _splits_and_scratch(B, KVH, H // KVH, dh, MP * ps, code,
+                                       q.device, extra=1)
+    arrived = decode_arrivals(q.device, B, KVH, H // KVH)
     fn = _build.function("paged_decode_step", "paged_decode_step_launch",
                          _ARGTYPES)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -119,7 +136,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens, *,
     """Read-only paged attention over each slot's ``lens`` live tokens ->
     (B,H,dh); the window is measured from position lens-1.  A row with
     lens == 0 is the uniform mean of V over all MP·ps table entries, as
-    the TPU kernel and the plain version give.
+    the TPU kernel and the plain version give.  One launch, split and
+    merged as the step's (the same counters).
     ``paged_decode_attention.launches`` counts the kernel launches (CPU
     calls are not counted)."""
     if q.device.type == "cpu":
@@ -149,20 +167,20 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens, *,
         raise ValueError("paged_decode_attention operands must share one "
                          "device")
     code = _build.dtype_code(q.dtype)
-    q = q.contiguous()
+    q = _build.aligned(q)
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     table = page_table.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    splits = _build.n_split("paged_decode_step", B * KVH, MP * ps,
-                             q.device)
-    part = torch.empty((B * KVH * splits * (H // KVH) * (dh + 2),),
-                       dtype=torch.float32, device=q.device)
+    splits, part = _splits_and_scratch(B, KVH, H // KVH, dh, MP * ps, code,
+                                       q.device)
+    arrived = decode_arrivals(q.device, B, KVH, H // KVH)
     fn = _build.function("paged_decode_step", "paged_decode_attention_launch",
                          _ATTN_ARGTYPES)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-             part.data_ptr(), B, H, KVH, dh, P, ps, MP, window or 0, splits,
+             part.data_ptr(), arrived.data_ptr(), B, H, KVH, dh, P, ps, MP,
+             window or 0, splits,
              1.0 / math.sqrt(dh), code, _build.stream_of(q))
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -530,3 +530,181 @@ def test_wrappers_count_launches(cuda):
     for name in ("paged_decode_step", "paged_decode_attention",
                  "decode_attention"):
         assert after[name] == before[name]
+
+
+# ---- the bf16 decode walk on the tensor cores (csrc/decode_attend.cuh):
+# query heads per KV head g up to two 16-row mma tiles, head dims the walk
+# zero-pads (8, 24) or takes whole (128, 256)
+WALK_G = [1, 3, 8, 10, 16, 17]
+WALK_DH = [8, 24, 128, 256]
+
+
+def _walk_case(rng, entry, B, g, dh, window, dev, empty_row):
+    """(kernel, plain) outputs of one bf16 call of ``entry`` ("ring",
+    "paged" read-only or "step"), KVH = 2, over walks of up to 208 tokens.
+    With ``empty_row``, row 0 of the read-only forms has no valid token
+    (the uniform mean over every entry, so no garbage is planted);
+    otherwise masked ring slots and the trash page hold NaN."""
+    KVH, ps, MP = 2, 16, 13
+    H = g * KVH
+    q = _t(rng.standard_normal((B, H, dh)), "bf16", dev)
+    if entry == "ring":
+        _, k, v, spos, pos = _ring(rng, B, H, KVH, 200, dh, "bf16", dev)
+        kk, vv = k.clone(), v.clone()
+        if empty_row:
+            spos[0] = -1
+        else:
+            kk[spos < 0] = float("nan")
+            vv[spos < 0] = float("nan")
+        out = decode_attention(q, kk, vv, spos, pos, window=window)
+        ref = decode_attention_ref(q, k, v, spos, pos, window=window)
+        return out, ref
+    lens = [int(rng.integers(1, MP * ps + 1)) for _ in range(B)]
+    if empty_row and entry == "paged":
+        lens[0] = 0
+    x, table, ln = _split_step_case(rng, B, H, KVH, dh, ps, MP, lens, "bf16",
+                                    dev)
+    k, v = x[3].clone(), x[4].clone()
+    if not empty_row:
+        k[-1] = float("nan")                          # the trash page
+        v[-1] = float("nan")
+    if entry == "paged":
+        out = paged_decode_attention(q, k, v, table, ln, window=window)
+        ref = paged_decode_attention_ref(q, x[3], x[4], table, ln,
+                                         window=window)
+        return out, ref
+    out, _, _ = paged_decode_step(q, x[1], x[2], k, v, table, ln,
+                                  window=window)
+    ref, _, _ = paged_decode_step_ref(q, x[1], x[2], x[3].clone(),
+                                      x[4].clone(), table, ln, window=window)
+    return out, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", WALK_DH)
+@pytest.mark.parametrize("g", WALK_G)
+@pytest.mark.parametrize("entry", ["ring", "paged", "step"])
+def test_decode_walk_bf16_heads_and_head_dims(cuda, entry, g, dh):
+    """Each entry point in bf16 at g query heads per KV head and head dim
+    dh, with and without a 64-token window and a row with no valid token,
+    or with NaN in the masked entries: within 2e-2 of the plain version,
+    and finite."""
+    for i, (window, empty_row) in enumerate([(None, True), (64, False),
+                                             (None, False), (64, True)]):
+        rng = np.random.default_rng([SEED, 20, WALK_G.index(g), dh, i])
+        out, ref = _walk_case(rng, entry, 3, g, dh, window, cuda, empty_row)
+        torch.cuda.synchronize()
+        what = f"{entry} g={g} dh={dh} window={window} empty={empty_row}"
+        assert torch.isfinite(out.float()).all(), what
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2, msg=lambda m: f"{what}\n{m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["ring", "paged", "step"])
+def test_decode_walk_bf16_one_split_and_the_most(cuda, entry):
+    """n_split = 1 (a walk of one 32-token tile, and 128 slots x 8 KV heads
+    that fill the card alone) and the largest split the wrappers pick (one
+    slot, one KV head, 3,000 tokens)."""
+    from repro_torch.kernels import _build
+    shapes = [(2, 10, 1, 256, 32, 16), (128, 16, 8, 64, 300, 64),
+              (1, 10, 1, 256, 3072, 3000)]
+    for B, H, KVH, dh, W, n in shapes:
+        rng = np.random.default_rng([SEED, 21, B, W])
+        q = _t(rng.standard_normal((B, H, dh)), "bf16", cuda)
+        if entry == "ring":
+            k = _t(rng.standard_normal((B, W, KVH, dh)), "bf16", cuda)
+            v = _t(rng.standard_normal((B, W, KVH, dh)), "bf16", cuda)
+            spos = torch.full((B, W), -1, dtype=torch.int32, device=cuda)
+            spos[:, :n] = torch.arange(n, dtype=torch.int32, device=cuda)
+            pos = torch.full((B,), n - 1, dtype=torch.int32, device=cuda)
+            out = decode_attention(q, k, v, spos, pos)
+            ref = decode_attention_ref(q, k, v, spos, pos)
+            splits = _build.n_split("decode_attention", B * KVH, W, H // KVH,
+                                    dh, 1, q.device)
+        else:
+            ps = 16
+            MP = -(-W // ps)
+            x, table, ln = _split_step_case(rng, B, H, KVH, dh, ps, MP,
+                                            [n] * B, "bf16", cuda)
+            if entry == "paged":
+                out = paged_decode_attention(q, x[3], x[4], table, ln)
+                ref = paged_decode_attention_ref(q, x[3], x[4], table, ln)
+            else:
+                out, _, _ = paged_decode_step(q, x[1], x[2], x[3].clone(),
+                                              x[4].clone(), table, ln)
+                ref, _, _ = paged_decode_step_ref(q, x[1], x[2],
+                                                  x[3].clone(),
+                                                  x[4].clone(), table, ln)
+            splits = _build.n_split("paged_decode_step", B * KVH, MP * ps,
+                                    H // KVH, dh, 1, q.device)
+        torch.cuda.synchronize()
+        if W <= 32 or B * KVH >= 1024:
+            assert splits == 1, (B, KVH, W, splits)
+        else:
+            assert splits >= 32, (B, KVH, W, splits)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2,
+                                   msg=lambda m: f"{entry} {B} {W}\n{m}")
+
+
+@pytest.mark.gpu
+def test_decode_walk_fifty_calls_leave_counters_zero(cuda):
+    """50 bf16 calls in a row, the three entry points in turn at changing
+    shapes, on the one per-device counter buffer: each output held to the
+    plain version, and every counter 0 at the end."""
+    from repro_torch.kernels import paged_attention
+    entries = ["ring", "paged", "step"]
+    for i in range(50):
+        rng = np.random.default_rng([SEED, 22, i])
+        g = WALK_G[i % len(WALK_G)]
+        out, ref = _walk_case(rng, entries[i % 3], 2 + i % 3, g,
+                              WALK_DH[i % len(WALK_DH)],
+                              64 if i % 4 == 0 else None, cuda, i % 2 == 0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2, msg=lambda m: f"call {i}\n{m}")
+    for counters in paged_attention._ARRIVALS.values():
+        assert int(counters.abs().sum()) == 0, counters
+
+
+# bf16 mLSTM on the tensor cores: (B, H, S, dh, gates); S below, at and past
+# one 64-token chunk and 32 chunks of carried state; every case holds C, n
+# and m to 2e-4 and h to 5e-2
+MLSTM_BF16 = [(1, 2, S, dh, "normal") for dh in (64, 256, 1024)
+              for S in (1, 63, 64, 65, 2048)]
+MLSTM_BF16 += [(1, 2, 200, 256, "big_i"), (1, 2, 200, 256, "forget"),
+               (1, 1, 300, 1024, "big_i"), (4, 4, 130, 256, "normal"),
+               (2, 8, 64, 64, "forget")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MLSTM_BF16, ids=str)
+def test_mlstm_chunkwise_bf16_mma(cuda, case):
+    B, H, S, dh, gates = case
+    args = _mlstm_inputs(B, H, S, dh, gates, "bf16", cuda,
+                         1000 + MLSTM_BF16.index(case))
+    got = mlstm_chunkwise(*args)
+    want = mlstm_chunkwise_ref(*args)
+    torch.cuda.synchronize()
+    _mlstm_close(got, want, 5e-2, str(case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 64, 100])
+def test_mlstm_chunkwise_bf16_resumes_from_state(cuda, split):
+    """The bf16 kernel from a given state: a second launch starting from
+    the first's final state, against the plain loop over the same two
+    halves (C, n, m at 2e-4, h at 5e-2)."""
+    q, k, v, i, f = _mlstm_inputs(2, 2, 230, 256, "normal", "bf16", cuda,
+                                 2000 + split)
+    cut = lambda t, a, b: t[:, :, a:b]                   # noqa: E731
+    first = [cut(t, 0, split) for t in (q, k, v, i, f)]
+    second = [cut(t, split, 230) for t in (q, k, v, i, f)]
+    h1, st = mlstm_chunkwise(*first)
+    h2, st = mlstm_chunkwise(*second, state=st)
+    hr1, st_r = mlstm_chunkwise_ref(*first)
+    hr2, st_r = mlstm_chunkwise_ref(*second, state=st_r)
+    torch.cuda.synchronize()
+    _mlstm_close((torch.cat([h1, h2], 2), st),
+                 (torch.cat([hr1, hr2], 2), st_r), 5e-2, f"split {split}")

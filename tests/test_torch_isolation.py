@@ -53,7 +53,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py", REPO / "chip_compare.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_repro(path):
     roots = {name.split(".")[0] for name in _imports(path)}

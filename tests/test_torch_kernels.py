@@ -515,3 +515,73 @@ def test_mlstm_parallel_f64_bounds_plain_and_jax(gates):
     for name, h in (("port", _np(th)), ("jax", _np(jh))):
         over = np.abs(h.astype(np.float64) - h64.numpy()) > bound
         assert not over.any(), f"{name}: {over.sum()} beyond the bound"
+
+
+def _split_bf16(x):
+    """x (fp32) as bf16 hi + lo, each returned as fp32: hi = bf16(x),
+    lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mlstm_split_emulation(q, k, v, i_pre, f_pre):
+    """The bf16 CUDA kernel's products in plain torch, chunk by chunk: q,
+    k, v hold bf16 values (exact operands); the fp32 operand of each state
+    product, C for q C and a_s v_s for the update, is split into bf16 hi +
+    lo and both halves are multiplied into one fp32 sum.  The gates, the m
+    trajectory and q k^T, w v and n stay fp32, as in the kernel."""
+    B, H, S, dh = q.shape
+    C = torch.zeros((B, H, dh, dh))
+    n = torch.zeros((B, H, dh))
+    m = torch.full((B, H), -1e30)
+    hs = []
+    for t0 in range(0, S, MLSTM_CHUNK):
+        sl = slice(t0, t0 + MLSTM_CHUNK)
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        ic = i_pre[:, :, sl]
+        L = qc.shape[2]
+        b = torch.cumsum(torch.nn.functional.logsigmoid(f_pre[:, :, sl]), -1)
+        g = b[..., -1]
+        D = b[..., :, None] - b[..., None, :] + ic[..., None, :]
+        D = torch.where(torch.ones((L, L), dtype=torch.bool).tril(), D,
+                        torch.full_like(D, -1e30))
+        m_inter = b + m[..., None]
+        m_j = torch.maximum(D.amax(-1), m_inter)
+        w = (qc @ kc.transpose(-1, -2)) * torch.exp(D - m_j[..., None])
+        inter = torch.exp(m_inter - m_j)
+        C_hi, C_lo = _split_bf16(C)
+        hq = qc @ C_hi + qc @ C_lo
+        den = inter * (qc @ n[..., None])[..., 0] + w.sum(-1)
+        hs.append((inter[..., None] * hq + w @ vc)
+                  / torch.maximum(den.abs(), torch.exp(-m_j))[..., None])
+        s_gate = g[..., None] - b + ic
+        m_new = torch.maximum(g + m, s_gate.amax(-1))
+        carry = torch.exp(g + m - m_new)
+        a = torch.exp(s_gate - m_new[..., None])[..., None]
+        av_hi, av_lo = _split_bf16(a * vc)
+        C = (carry[..., None, None] * C + kc.transpose(-1, -2) @ av_hi
+             + kc.transpose(-1, -2) @ av_lo)
+        n = carry[..., None] * n + (a * kc).sum(-2)
+        m = m_new
+    return torch.cat(hs, 2), (C, n, m)
+
+
+@pytest.mark.parametrize("gates", ["normal", "big_i"])
+def test_mlstm_bf16_split_precision_meets_state_tolerance(gates):
+    """The design of the bf16 kernel's numerics, checked on the CPU: with
+    the fp32 operand split into bf16 hi + lo, the final (C, n, m) after 8
+    chunks at dh 256 stay within 2e-4 of the plain fp32 chunk loop on the
+    same bf16-valued inputs, and h within 5e-2."""
+    x = _mlstm_inputs(1, 2, 512, 256, 41)
+    if gates == "big_i":
+        x["i"] = x["i"] * 10.0 + 20.0
+    t = {nm: torch.tensor(a, dtype=torch.float32) for nm, a in x.items()}
+    for nm in "qkv":
+        t[nm] = t[nm].to(torch.bfloat16).float()
+    h, state = _mlstm_split_emulation(*(t[nm] for nm in "qkvif"))
+    hr, state_r = mlstm_chunkwise_ref(*(t[nm] for nm in "qkvif"))
+    assert torch.isfinite(h).all()
+    torch.testing.assert_close(h, hr, atol=5e-2, rtol=5e-2)
+    for nm, a, b in zip("Cnm", state, state_r):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4,
+                                   msg=lambda e: f"{gates} {nm}: {e}")
