@@ -12,13 +12,19 @@
       and from this checkout in fresh processes in the order DIR, this,
       this, DIR (phase 7 once each); prints every path's tok/s side by
       side and whether the two checkouts gave the same tokens.
+  python3 chip_compare.py scan [--tree DIR] [--chunks 1,2,...]
+      the RG-LRU scan at ``chip_smoke.py``'s timed shapes (``SCAN_TIMED``,
+      inputs cycled past the L2), checkout DIR's and this one's in fresh
+      processes in the order DIR, this, this, DIR (this, this without
+      DIR); with --chunks, this checkout's scan also at each forced chunk
+      count.
   python3 chip_compare.py prefill DIR [-n 16]
       xlstm-1.3b's bf16 prefill (phase 7's weights, n prompts of 1024
       tokens) in DIR and in this checkout, each held to an fp32 reference
       of the same weights: last-position logit error and argmax agreement
       of the kernel path and of the bf16 plain path.
 
-Both need a CUDA device and build the kernels from each checkout's
+All need a CUDA device and build the kernels from each checkout's
 sources.  The helpers (inputs, timing) are this checkout's
 ``chip_smoke.py``.
 """
@@ -220,6 +226,22 @@ for k, x in got.items():
               "argmax": x.argmax(-1).tolist()}
 json.dump(res, open(out_path, "w"))
 """
+# One checkout's scan times (chip_smoke.scan_times of THIS checkout, the
+# scan wrapper of the checkout in the working directory), as JSON to
+# argv[1]; argv[2] is this checkout's root, argv[3] the forced counts.
+SCAN = r"""
+import json, sys
+from pathlib import Path
+out_path, root, counts = sys.argv[1], sys.argv[2], sys.argv[3]
+sys.path[:0] = [root, "src"]
+import chip_smoke as c
+from repro_torch.kernels import _build, rglru_scan
+if Path(_build.__file__).resolve().parents[3] != Path.cwd().resolve():
+    raise RuntimeError(f"repro_torch imported from {_build.__file__}")
+_build.build_all(["rglru_scan"])
+res = c.scan_times(rglru_scan, [int(x) for x in counts.split(",") if x])
+json.dump(res, open(out_path, "w"))
+"""
 TOKS = re.compile(r"^\[serve\] ([^:]+):.*?= ([0-9.]+) tok/s")
 
 
@@ -275,6 +297,50 @@ def serving(other: Path, phases) -> None:
         print("[serving] phase 7 ran once per checkout", flush=True)
 
 
+def scan_once(tree: Path, counts: str, label: str, logdir: Path) -> dict:
+    out_path = logdir / f"scan_{label}.json"
+    proc = subprocess.run([sys.executable, "-c", SCAN, str(out_path),
+                           str(ROOT), counts], cwd=tree, capture_output=True,
+                          text=True)
+    (logdir / f"scan_{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: scan timing failed (rc "
+                           f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    res = json.loads(out_path.read_text())
+    print(f"[scan] {label}: " + "; ".join(
+        f"{k} {v['ms']:.5f} ms (eager {v['enqueue_ms']:.5f}; "
+        f"{v['chunks']} chunks)" for k, v in res.items()), flush=True)
+    for k, v in res.items():
+        if v["forced"]:
+            print(f"[scan] {label} {k} forced: " + ", ".join(
+                f"{n} chunks {ms:.5f}" for n, ms in v["forced"].items()),
+                flush=True)
+    return res
+
+
+def scan(other, counts: str) -> None:
+    """Each checkout's scan by graph replay, in turns in fresh processes:
+    the spread of one checkout's two runs beside the difference."""
+    import chip_smoke as c
+    logdir = ROOT / "chiprun_out" / "compare"
+    logdir.mkdir(parents=True, exist_ok=True)
+    runs = {"this": []}
+    if other is not None:
+        runs["other"] = [scan_once(other, "", "other_1", logdir)]
+    runs["this"].append(scan_once(ROOT, counts, "this_1", logdir))
+    runs["this"].append(scan_once(ROOT, "", "this_2", logdir))
+    if other is not None:
+        runs["other"].append(scan_once(other, "", "other_2", logdir))
+    for key, (B, S, d, dt) in c.SCAN_TIMED.items():
+        line = f"[scan] B={B} S={S} d={d} {dt}:"
+        for label, rs in runs.items():
+            ms = [r[key]["ms"] for r in rs]
+            line += (f" {label} {[round(x, 5) for x in ms]} mean "
+                     f"{sum(ms) / len(ms):.5f} ms;")
+        print(line, flush=True)
+    print(c.smi(), flush=True)
+
+
 def prefill(other: Path, n: int) -> None:
     logdir = ROOT / "chiprun_out" / "compare"
     logdir.mkdir(parents=True, exist_ok=True)
@@ -313,6 +379,9 @@ def main() -> int:
     s = sub.add_parser("serving")
     s.add_argument("other", type=Path)
     s.add_argument("--phases", default="3,5,7")
+    c = sub.add_parser("scan")
+    c.add_argument("--tree", type=Path, default=None)
+    c.add_argument("--chunks", default="")
     f = sub.add_parser("prefill")
     f.add_argument("other", type=Path)
     f.add_argument("-n", type=int, default=16)
@@ -327,6 +396,9 @@ def main() -> int:
         return 1
     if args.cmd == "merge-share":
         merge_share(args.tree)
+    elif args.cmd == "scan":
+        sys.path.insert(0, str(ROOT))
+        scan(args.tree and args.tree.resolve(), args.chunks)
     elif args.cmd == "serving":
         serving(args.other.resolve(), args.phases.split(","))
     else:

@@ -20,7 +20,9 @@ Phases (any failure exits non-zero, with no result line):
      its plain version and, where one exists, a PyTorch library call
      computing the same function (a yardstick the port never calls);
      flash is timed in bf16 and fp32 (two kernels), the ring decode also
-     at qwen2.5-3b's striped shape, mLSTM also at a 128-token prompt;
+     at qwen2.5-3b's striped shape, mLSTM also at a 128-token prompt,
+     the scan at four shapes (``SCAN_TIMED``) with its inputs cycled past
+     the L2 and the chunk count each one used;
   3. serve full-width qwen2.5-3b (36 layers, d_model 2048, random bf16
      weights from a seed) through ``ContinuousBatchingEngine`` with prefix
      sharing on, then through ``InferenceEngine`` and the striped
@@ -76,7 +78,15 @@ SSM_MLSTM, SSM_SLSTM = 42, 6      # xlstm-1.3b's 48 layers
 PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
 # further timed shapes of a kernel, beside its main one: flash's fp32
 # kernel, dh 256, the ring decode at qwen2.5-3b's shape, a short prompt
-EXTRA = ("fp32", "dh256", "qwen", "S128")
+# and the scan at a short prompt, the static batch and in bf16
+EXTRA = ("fp32", "dh256", "qwen", "S128", "S256", "B8", "bf16")
+# the scan's timed shapes (B, S, d, dtype): one RG-LRU layer's prefill of a
+# 2048-token prompt, a typical paged prompt, InferenceEngine's static batch
+SCAN_TIMED = {"main": (1, 2048, 2560, "float32"),
+              "S256": (1, 256, 2560, "float32"),
+              "B8": (8, 1024, 2560, "float32"),
+              "bf16": (1, 2048, 2560, "bfloat16")}
+L2_BYTES = 50e6                # H100 SXM L2 cache
 
 
 def log(msg: str) -> None:
@@ -475,7 +485,8 @@ def check_decode(errs, dtype_name):
 
 def check_scan(errs, dtype_name):
     """RG-LRU scan at recurrentgemma-2b's width (d 2560; S = 1, 17, 1000,
-    2600; B = 1, 8) and tests/test_kernels.py's sweep shapes."""
+    2600; B = 1, 8; and the many-chunk S 4096 at B 1, S 1000 at B 3) and
+    tests/test_kernels.py's sweep shapes."""
     import torch
     from repro_torch.kernels import rglru_scan
     from repro_torch.kernels.ref import rglru_scan_ref
@@ -483,6 +494,8 @@ def check_scan(errs, dtype_name):
     gen = torch.Generator(device="cuda").manual_seed(14)
     shapes = [(B, S, 2560) for B in (1, 8) for S in (1, 17, 1000, 2600)]
     shapes += [(2, 512, 256), (1, 1024, 128), (3, 256, 384), (1, 64, 128)]
+    # many chunks a chain: long prompts, a few rows
+    shapes += [(1, 4096, 2560), (3, 1000, 2560)]
     for B, S, d in shapes:
         a = (0.7 + 0.299 * torch.rand((B, S, d), generator=gen,
                                       device="cuda")).to(dtype)
@@ -838,26 +851,90 @@ def _time_decode(H, KVH, dh, fills, window, seed):
                      f"timing)"}
 
 
+def scan_copies(B, S, d, dtype_name, seed):
+    """Input sets (a, b, h0) of one timed scan shape: enough copies that
+    the sets one graph replay cycles through span 4x the L2, so each
+    launch reads its inputs from device memory."""
+    import torch
+    dtype = getattr(torch, dtype_name)
+    per_set = 2 * B * S * d * dtype.itemsize
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sets = []
+    for _ in range(max(2, math.ceil(4 * L2_BYTES / per_set))):
+        a = 0.7 + 0.299 * torch.rand((B, S, d), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((B, S, d), generator=gen, device="cuda")
+        h0 = torch.randn((B, d), generator=gen, device="cuda")
+        sets.append((a.to(dtype), b.to(dtype), h0))
+    return sets
+
+
+def cycling(fn, sets):
+    """fn on the next input set at each call."""
+    turn = {"i": -1}
+
+    def call():
+        turn["i"] = (turn["i"] + 1) % len(sets)
+        return fn(*sets[turn["i"]])
+    return call
+
+
+def scan_times(fn, counts=(), plain=None):
+    """The scan wrapper ``fn`` at each shape of SCAN_TIMED, inputs cycled
+    cold: {key: {"ms" (``graph_ms``), "enqueue_ms" (eager), "plain_ms"
+    (``plain`` on one input set, when given), "chunks", "forced": {n:
+    ms}}}.  "chunks" is the count ``fn`` picks (None for a wrapper with
+    no chunk count); ``counts`` are also timed forced, where ``fn`` takes
+    a forced count."""
+    import torch
+    from repro_torch.kernels import _build
+    out = {}
+    for key, (B, S, d, dt) in SCAN_TIMED.items():
+        sets = scan_copies(B, S, d, dt, 18)
+        res = {"ms": graph_ms(cycling(fn, sets)),
+               "enqueue_ms": time_ms(cycling(fn, sets)), "chunks": None,
+               "forced": {}}
+        if plain is not None:
+            res["plain_ms"] = time_ms(lambda: plain(*sets[0]), iters=3,
+                                      warmup=1)
+        if hasattr(fn, "force_chunks"):
+            from repro_torch.kernels.rglru_scan import (chunk_count,
+                                                        effective_chunks)
+            res["chunks"] = chunk_count(B, S, d, _build.dtype_code(
+                getattr(torch, dt)), sets[0][0].device)
+            for n in counts:
+                fn.force_chunks = n
+                try:
+                    res["forced"][effective_chunks(S, n)] = graph_ms(
+                        cycling(fn, sets))
+                finally:
+                    fn.force_chunks = None
+        out[key] = res
+        del sets
+    return out
+
+
 def time_scan():
-    """One RG-LRU layer's prefill scan of a 2048-token prompt at d 2560;
-    a and b are fp32 on the model's path (the gates run in fp32)."""
+    """The RG-LRU scan at SCAN_TIMED's shapes; a and b are fp32 on the
+    model's path (the gates run in fp32), bf16 is timed beside."""
     import torch
     from repro_torch.kernels import rglru_scan
     from repro_torch.kernels.ref import rglru_scan_ref
-    B, S, d = 1, 2048, 2560
-    gen = torch.Generator(device="cuda").manual_seed(18)
-    a = 0.7 + 0.299 * torch.rand((B, S, d), generator=gen, device="cuda")
-    b = 0.1 * torch.randn((B, S, d), generator=gen, device="cuda")
-    h0 = torch.randn((B, d), generator=gen, device="cuda")
-    ms = graph_ms(lambda: rglru_scan(a, b, h0))
-    enq = time_ms(lambda: rglru_scan(a, b, h0))
-    plain = time_ms(lambda: rglru_scan_ref(a, b, h0), iters=3, warmup=1)
-    n_bytes = 3 * B * S * d * 4 + B * d * 4
-    b_ms, by = bound_ms(n_bytes, 2 * B * S * d, "float32")
-    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "shape": "B=1 S=2048 d=2560 fp32 (library: none, no single "
-                     "PyTorch call computes a linear recurrence)"}
+    times = scan_times(rglru_scan, plain=rglru_scan_ref)
+    out = {}
+    for key, (B, S, d, dt) in SCAN_TIMED.items():
+        t = times[key]
+        n_bytes = 3 * B * S * d * getattr(torch, dt).itemsize + B * d * 4
+        b_ms, by = bound_ms(n_bytes, 2 * B * S * d, "float32")
+        out[key] = {
+            "ms": t["ms"], "enqueue_ms": t["enqueue_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "chunks": t["chunks"],
+            "shape": f"B={B} S={S} d={d} {dt}, {t['chunks']} chunks a "
+                     f"chain, inputs cycled past the L2 (library: none, no "
+                     f"single PyTorch call computes a linear recurrence)"}
+    main = out.pop("main")
+    main.update(out)
+    return main
 
 
 # ------------------------------------------------------------ phase 3
@@ -1470,6 +1547,9 @@ def main() -> int:
                     f"{tt['plain_ms']:.4f} library_ms={tt['library_ms']} "
                     f"bound_ms={tt['bound_ms']:.5f} ({tt['bound_by']}) at "
                     f"{tt['shape']}")
+    log(f"[scan] chunks a chain: " + ", ".join(
+        f"{k} {timing['rglru_scan'][k]['chunks']}" for k in SCAN_TIMED
+        if k != "main") + f", main {timing['rglru_scan']['chunks']}")
 
     t0 = time.perf_counter()
     serve_full_width(args.seed)

@@ -73,9 +73,12 @@ DECODE_BUCKETS = [
     (2, 10, 1, 100, 256, 64, "bf16"),
     (2, 10, 1, 100, 256, None, "f32"),
 ]
-# (B, S, d)
+# (B, S, d); d 130 is no multiple of a 16-byte vector (the kernel's
+# element-wise loads); the last three have many chunks a chain at
+# recurrentgemma-2b's width (a long prompt, the longest, a few rows)
 SCAN_SHAPES = [(2, 512, 256), (1, 1024, 128), (3, 256, 384), (1, 64, 128),
-               (2, 1, 96), (1, 17, 2560), (2, 100, 200)]
+               (2, 1, 96), (1, 17, 2560), (2, 100, 200), (2, 300, 130),
+               (1, 2600, 2560), (1, 4096, 2560), (3, 1000, 2560)]
 # (B, H, S, dh, gates, dtype): tests/test_kernels.py's sweep, then S = 1,
 # S below / at / past the 64-token chunk, ragged S, xlstm-1.3b's dh 1024,
 # and extreme gates ("big_i": i_pre up to 40, the stabiliser at work;
@@ -433,6 +436,104 @@ def test_rglru_scan_kernel_matches_plain(cuda, shape, dt):
     tol = 5e-2 if dt == "bf16" else 1e-4
     assert out.dtype == a.dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _scan_inputs(B, S, d, dt, dev, seed, gates="normal"):
+    """a, b in ``dt`` and h0 fp32, drawn on the card; "small" gates are
+    the model's smallest (a down to 0.05: the chunk product A underflows
+    to 0 within a chunk of 64)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = (0.05, 0.12) if gates == "small" else (0.7, 0.999)
+    a = lo + (hi - lo) * torch.rand((B, S, d), generator=gen, device=dev)
+    b = 0.1 * torch.randn((B, S, d), generator=gen, device=dev)
+    h0 = torch.randn((B, d), generator=gen, device=dev)
+    return a.to(TORCH_DTYPES[dt]), b.to(TORCH_DTYPES[dt]), h0
+
+
+def _scan_close(out, ref, dt, what):
+    tol = 5e-2 if dt == "bf16" else 1e-4
+    assert out.dtype == ref.dtype, what
+    assert torch.isfinite(out.float()).all(), what
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"{what}\n{m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", ["one", "two", "picked", "most"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_rglru_scan_forced_chunk_counts(cuda, shape, dt, count):
+    """Each shape at chunk count 1 (the plain walk), 2 (chunks longer than
+    the shared-memory tile at long S), the count the wrapper picks, and
+    the most (S chunks of one step)."""
+    from repro_torch.kernels.rglru_scan import chunk_count, effective_chunks
+    B, S, d = shape
+    a, b, h0 = _scan_inputs(B, S, d, dt, cuda, S * 7 + d)
+    picked = chunk_count(B, S, d, int(dt == "bf16"), a.device)
+    n = {"one": 1, "two": 2, "picked": picked, "most": S}[count]
+    rglru_scan.force_chunks = n
+    try:
+        out = rglru_scan(a, b, h0)
+    finally:
+        rglru_scan.force_chunks = None
+    ref = rglru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    _scan_close(out, ref, dt, f"{shape} {dt} {effective_chunks(S, n)} "
+                              f"chunks (picked {picked})")
+    if B * -(-d // 128) < torch.cuda.get_device_properties(
+            a.device).multi_processor_count and S >= 1000:
+        assert picked > 1, (shape, picked)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_fifty_calls_and_a_graph_replay_leave_status_zero(cuda):
+    """50 calls in a row at changing shapes, dtypes, gates and chunk counts
+    on the one per-device status scratch, then one CUDA-graph replay of a
+    many-chunk call: each output held to the plain version, and every
+    ticket, arrival counter and flag 0 at the end."""
+    from repro_torch.kernels.rglru_scan import _STATUS
+    shapes = [(1, 2048, 2560), (2, 300, 200), (1, 77, 37), (3, 1000, 384),
+              (1, 1, 128)]
+    counts = [None, 1, 2, 7, 64, 10**6]
+    for i in range(50):
+        B, S, d = shapes[i % len(shapes)]
+        dt = "bf16" if i % 3 == 2 else "f32"
+        gates = "small" if i % 4 == 1 else "normal"
+        a, b, h0 = _scan_inputs(B, S, d, dt, cuda, 100 + i, gates)
+        rglru_scan.force_chunks = counts[i % len(counts)]
+        try:
+            out = rglru_scan(a, b, h0)
+        finally:
+            rglru_scan.force_chunks = None
+        _scan_close(out, rglru_scan_ref(a, b, h0), dt, f"call {i}")
+    a, b, h0 = _scan_inputs(1, 2048, 2560, "f32", cuda, 99)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rglru_scan(a, b, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rglru_scan(a, b, h0)
+    ref = rglru_scan_ref(a, b, h0)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _scan_close(out, ref, "f32", "graph replay")
+    assert _STATUS
+    for ints, _ in _STATUS.values():
+        assert int(ints.abs().sum()) == 0, ints.nonzero()
+
+
+@pytest.mark.gpu
+def test_rglru_scan_counts_one_launch_per_many_chunk_call(cuda):
+    from repro_torch.kernels.rglru_scan import chunk_count
+    a, b, h0 = _scan_inputs(1, 2048, 2560, "f32", cuda, 5)
+    assert chunk_count(1, 2048, 2560, 0, a.device) > 1
+    before = rglru_scan.launches
+    rglru_scan(a, b, h0)
+    assert rglru_scan.launches == before + 1
 
 
 def _mlstm_inputs(B, H, S, dh, gates, dt, dev, seed):

@@ -369,6 +369,111 @@ def test_rglru_scan_plain_ragged_lengths(S):
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("S", [1, 2, 17, 202, 256, 2048, 2600])
+def test_rglru_scan_effective_chunks_cover_every_step(S):
+    """Any requested chunk count becomes one the kernel runs: chunks of
+    L = ceil(S / n) steps, the last one 1 to L steps, covering S exactly
+    (the kernel refuses a count that leaves a chunk empty)."""
+    from repro_torch.kernels.rglru_scan import effective_chunks
+    for want in (1, 2, 3, 7, 16, 19, 32, S - 1, S, S + 5, 10**6):
+        n = effective_chunks(S, want)
+        L = -(-S // min(max(want, 1), S))
+        assert 1 <= n <= S and n <= max(want, 1)
+        assert (n - 1) * L < S <= n * L, (S, want, n, L)
+        assert effective_chunks(S, n) == n
+
+
+# the CUDA scan's look-back: predecessors one round reads (kWindow in
+# csrc/rglru_scan.cu)
+SCAN_WINDOW = 32
+
+
+def _scan_chunk_emulation(a, b, h0, L, published_every):
+    """The chunked CUDA scan's arithmetic in torch, fp32 carries, h rounded
+    to a's dtype: each chunk of L steps as its map (A, Bc) from a zero
+    carry; chunk k's carry-in by the look-back, composing predecessors'
+    maps back (32 a round) to the nearest chunk whose carry-out is
+    published (chunk 0 always, every ``published_every``-th too, or none
+    else when None); the published carry-out A·carry_in + Bc; and the
+    rescan from the carry-in.  Returns (h, every chunk's A)."""
+    B, S, d = a.shape
+    af, bf = a.float(), b.float()
+    spans = [(lo, min(S, lo + L)) for lo in range(0, S, L)]
+    maps = []
+    for lo, hi in spans:
+        A, Bc = torch.ones(B, d), torch.zeros(B, d)
+        for t in range(lo, hi):
+            A = A * af[:, t]
+            Bc = af[:, t] * Bc + bf[:, t]
+        maps.append((A, Bc))
+
+    def published(j):
+        return j == 0 or bool(published_every) and j % published_every == 0
+    h = torch.empty((B, S, d), dtype=a.dtype)
+    carry_out = {}
+    for k, (lo, hi) in enumerate(spans):
+        carry = h0.float()
+        P, Q = torch.ones(B, d), torch.zeros(B, d)
+        top = k
+        while top > 0:
+            window = [j for j in range(top - 1, top - 1 - SCAN_WINDOW, -1)
+                      if j >= 0]
+            hit = next((i for i, j in enumerate(window) if published(j)),
+                       len(window))
+            for j in window[:hit]:
+                A, Bc = maps[j]
+                P, Q = P * A, P * Bc + Q
+            if hit < len(window):
+                carry = P * carry_out[window[hit]] + Q
+                break
+            top -= SCAN_WINDOW
+        carry_in = carry
+        for t in range(lo, hi):
+            carry = af[:, t] * carry + bf[:, t]
+            h[:, t] = carry.to(a.dtype)
+        A, Bc = maps[k]
+        carry_out[k] = carry if k == 0 else A * carry_in + Bc
+    return h, [A for A, _ in maps]
+
+
+@pytest.mark.parametrize("published", [3, None], ids=["every3", "first"])
+@pytest.mark.parametrize("gates", ["normal", "small"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("L", [1, 7, 64, "S"])
+def test_rglru_scan_chunk_algebra_matches_plain_and_jax(L, dt, gates,
+                                                        published):
+    """The chunked kernel's design, checked on the CPU: chunk maps, the
+    look-back's composition across several predecessors (across windows
+    when only chunk 0 is published) and the rescan give the plain
+    sequential scan and the JAX oracle, at chunk lengths 1, 7, 64 and S
+    over a ragged S.  "small" gates (a in 0.05-0.12, the model's
+    smallest) make a 64-step chunk's A underflow to exactly 0: the carry
+    is forgotten, and nothing divides by A."""
+    B, S, d = 2, 202, 40
+    rng = np.random.default_rng([SEED, 23, S])
+    lo, hi = (0.05, 0.12) if gates == "small" else (0.7, 0.999)
+    a = rng.uniform(lo, hi, (B, S, d))
+    b = rng.standard_normal((B, S, d)) * 0.1
+    h0 = rng.standard_normal((B, d))
+    tdt = DTYPES[dt][1]
+    ta = torch.tensor(a, dtype=torch.float32).to(tdt)
+    tb = torch.tensor(b, dtype=torch.float32).to(tdt)
+    th0 = torch.tensor(h0, dtype=torch.float32)
+    h, As = _scan_chunk_emulation(ta, tb, th0, S if L == "S" else L,
+                                  published)
+    assert h.dtype == tdt and torch.isfinite(h.float()).all()
+    if gates == "small" and L in (64, "S"):
+        assert any(bool((A == 0).all()) for A in As)
+    tol = 5e-2 if dt == "bf16" else 1e-4
+    plain = rglru_scan(ta, tb, th0)
+    oracle = jax_scan_ref(jnp.asarray(ta.float().numpy()),
+                          jnp.asarray(tb.float().numpy()),
+                          jnp.asarray(h0, jnp.float32))
+    for name, r in (("plain", plain), ("jax", oracle)):
+        np.testing.assert_allclose(_np(h), _np(r), atol=tol, rtol=tol,
+                                   err_msg=f"{name} L={L} {dt} {gates}")
+
+
 @pytest.mark.parametrize("window", [None, 24])
 def test_flash_attention_plain_head_dim_256(window):
     """RecurrentGemma's prefill shape family: MQA at dh 256, ragged S."""
