@@ -50,7 +50,20 @@ Phases (any failure exits non-zero, with no result line):
      mlstm_chunkwise launches == 42 x prefills on every path, no attention
      kernel launches;
   8. the same three paths in fp32 on a few requests, each token held to
-     the plain teacher-forced argmax (plain mLSTM chunk loop).
+     the plain teacher-forced argmax (plain mLSTM chunk loop);
+  9. qwen2.5-3b execute-while-load at full width (bf16, every "node" on
+     cuda:0): ``pack_model`` into 4 blocks of 9 layers, multicast 1 -> 4
+     with the λPipe schedule (every node's buffer equal to the source,
+     node 3's unpacked weights bit-equal; the wall time and GB/s printed
+     as a device-local copy rate), 8 requests on the 4-stage
+     ``PipelinedEngine`` built from node 3's blocks for 6 ticks, drain,
+     handoff and adopt into a paged engine run to the end (every request
+     finishes once with its full budget, no adopted sequence prefilled;
+     flash launches == 36 x (microbatch forwards + recomputes + fresh
+     prefills), decode-step launches == 36 x local decode ticks), then a
+     prefill-role engine exporting to a decode-role one (adopted pages
+     byte-equal to the payloads), and the pipelined-then-adopted path in
+     fp32 on 3 requests held to the plain teacher-forced argmax.
 Each path is driven with every launch count set to 0 just before it and
 read just after.  The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
@@ -1073,21 +1086,29 @@ def profile_ticks(eng, vocab: int, seed: int, label: str,
     measured run; prints device-busy share of the wall time and the top
     kernels."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed + 7)
     for i in range(8):
         eng.submit(list(map(int, rng.integers(0, vocab, prompt))), 24,
                    req_id=1000 + i)
+    ticks0 = eng.stats["decode_ticks"]
+    profile_call(eng.run, f"{label} 8 requests x ({prompt} prompt, 24 new)",
+                 top=10)
+    log(f"[profile] {label}: {eng.stats['decode_ticks'] - ticks0} decode "
+        f"ticks in the profiled burst")
+
+
+def profile_call(fn, label: str, top: int = 8) -> None:
+    """One call of ``fn`` under torch.profiler: prints its wall time, the
+    device-busy share and the ``top`` device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        ticks0 = eng.stats["decode_ticks"]
-        eng.run()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ticks = eng.stats["decode_ticks"] - ticks0
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
     # device-side events only (kernels, memcpy/memset): host operators
@@ -1096,11 +1117,9 @@ def profile_ticks(eng, vocab: int, seed: int, label: str,
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and dev(e) > 0]
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"[profile] {label} 8 requests x ({prompt} prompt, 24 new): {ticks} "
-        f"decode "
-        f"ticks, wall {wall:.4f} s, device busy {busy:.4f} s "
+    log(f"[profile] {label}: wall {wall:.4f} s, device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
-    for t, key, count in sorted(rows, reverse=True)[:10]:
+    for t, key, count in sorted(rows, reverse=True)[:top]:
         log(f"[profile] {label}  {t / 1e3:10.3f} ms  {count:6d}x  "
             f"{key[:90]}")
 
@@ -1486,6 +1505,266 @@ def check_ssm_fp32(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 9
+EWL_BLOCKS = 4             # 9 layers a block: block = pipeline stage
+EWL_NODES = 4              # 1 source + 3 receivers, all on cuda:0
+
+
+def ewl_trace(vocab: int, seed: int, n: int = 8):
+    """``n`` requests, prompts 64..512 tokens, 24..48 new tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(list(map(int, rng.integers(0, vocab, int(p)))), int(m))
+            for p, m in zip(rng.integers(64, 513, n),
+                            rng.integers(24, 49, n))]
+
+
+def multicast_blocks(cfg, params):
+    """Pack qwen2.5-3b into EWL_BLOCKS blocks, multicast them 1 → EWL_NODES
+    with the λPipe schedule over node buffers that all live on cuda:0, and
+    check every node's bytes and node 3's unpacked weights against the
+    source bit for bit.  Returns node 3's buffer and specs."""
+    import torch
+    from repro_torch.core.blocks import (block_assignment, flatten_params,
+                                         pack_model, unpack_flat)
+    from repro_torch.core.ewl import plan_scale
+    from repro_torch.core.partial_exec import layer_range_of_units
+    from repro_torch.distributed import multicast
+    ranges = [layer_range_of_units(u)
+              for u in block_assignment(cfg, EWL_BLOCKS)]
+    if [hi - lo for lo, hi in ranges] != [N_LAYERS // EWL_BLOCKS] * \
+            EWL_BLOCKS:
+        raise AssertionError(f"blocks are not 9 layers each: {ranges}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stacked, specs = pack_model(cfg, params, EWL_BLOCKS)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    plan = plan_scale(EWL_NODES, EWL_BLOCKS, k=1)
+    bufs = [stacked] + [torch.zeros_like(stacked)
+                        for _ in range(EWL_NODES - 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multicast(bufs, plan.schedule)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sum(len(step) for step in plan.schedule.steps)
+    moved = rows * stacked.shape[1]
+    for n, buf in enumerate(bufs):
+        if not torch.equal(buf, stacked):
+            raise AssertionError(f"multicast: node {n}'s blocks differ")
+    src = flatten_params(cfg, params)
+    got = unpack_flat(bufs[-1], specs)
+    if sorted(got) != sorted(src) or not all(
+            got[k].dtype == t.dtype and torch.equal(got[k], t)
+            for k, t in src.items()):
+        raise AssertionError("node 3's unpacked weights differ from the "
+                             "source's")
+    log(f"[ewl] pack_model: {EWL_BLOCKS} blocks x {stacked.shape[1] / 1e9:.3f}"
+        f" GB padded ({sum(sp.nbytes for sp in specs) / 1e9:.3f} GB of "
+        f"tensors) in {pack_s:.3f} s; multicast 1 -> {EWL_NODES} "
+        f"({plan.schedule.n_steps} steps, {rows} block rows = "
+        f"{moved / 1e9:.3f} GB) in {wall * 1e3:.2f} ms = "
+        f"{moved / wall / 1e9:.1f} GB/s device-local copy rate (all nodes "
+        f"on cuda:0, staged row copies; no network); every node's buffer "
+        f"equals the source, node 3's {len(got)} tensors bit-equal")
+    keep = bufs[-1]
+    del bufs, stacked
+    torch.cuda.empty_cache()
+    return keep, specs
+
+
+def serve_ewl(seed: int) -> None:
+    """Full-width qwen2.5-3b bf16 execute-while-load: multicast the blocks,
+    serve on the 4-stage pipelined engine built from node 3's blocks,
+    drain, hand off and adopt into a paged engine on node 3's weights,
+    then prefill/decode disaggregation over the PackedKV wire."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.blocks import unflatten_params, unpack_flat
+    from repro_torch.distributed import PipelinedEngine, stages_from_flat
+    from repro_torch.models import init_params
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    node3, specs = multicast_blocks(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    flat = unpack_flat(node3, specs)
+    stages = stages_from_flat(cfg, flat, EWL_BLOCKS, ["cuda"] * EWL_BLOCKS)
+    pipe = PipelinedEngine.from_stages(cfg, stages, n_microbatches=2,
+                                       n_slots=8, max_len=1024, pad_to=64,
+                                       max_prefill_per_tick=1)
+    trace = ewl_trace(cfg.vocab_size, seed + 40)
+    pipelined_then_local(cfg, pipe, unflatten_params(cfg, flat), trace,
+                         "qwen2.5-3b", "node 3's blocks", ticks=6)
+    disaggregate(cfg, unflatten_params(cfg, flat),
+                 ewl_trace(cfg.vocab_size, seed + 41))
+    del pipe, stages, flat, node3
+    torch.cuda.empty_cache()
+
+
+def pipelined_then_local(cfg, pipe, params, trace, label: str, source: str,
+                         ticks: int):
+    """Serve ``trace`` on the pipelined engine for ``ticks`` ticks, drain,
+    hand off and adopt into a paged engine that runs to the end; every
+    request finishes once with its full budget, no adopted sequence is
+    prefilled, and the launches match the work.  Returns the finished
+    sequences by request id."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    for i, (p, n) in enumerate(trace):
+        pipe.submit(p, n, req_id=i)
+    path = f"{label} pipelined (EWL)"
+    M = 2
+    tick_ms = []
+
+    def serve():
+        for t in range(ticks):
+            t0 = time.perf_counter()
+            # the last tick, the fullest, under the profiler: where its
+            # time goes (step() ends in a host read, so the clock is fair)
+            if t == ticks - 1:
+                profile_call(pipe.step, f"{label} pipelined tick")
+            else:
+                pipe.step()
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+    _, _, counts = drive(path, serve)
+    expect(path, counts, {"flash_attention": N_LAYERS * M * ticks})
+    pipe.drain()
+    pairs = pipe.handoff()
+    started = sum(1 for q, _ in pairs if q.generated)
+    queued = len(pairs) - started
+    local = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=1024,
+                                     page_size=16, prefix_sharing=True)
+
+    def switch():
+        local.adopt(pairs)
+        return local.run()
+    path2 = f"{label} mode switch + local"
+    _, wall2, counts2 = drive(path2, switch)
+    s = local.stats
+    fresh = sum(1 for q in local.sched.finished.values()
+                if not q.shared_tokens) - started
+    if s["adopted"] != started or s["prefills"] != queued or not started:
+        raise AssertionError(f"{path2}: adopted {s['adopted']} of {started} "
+                             f"started, {s['prefills']} prefills for "
+                             f"{queued} queued")
+    expect(path2, counts2,
+           {"flash_attention": N_LAYERS * (started + fresh),
+            "paged_decode_step": N_LAYERS * s["decode_ticks"]})
+    done = dict(pipe.sched.finished)
+    if set(done) & set(local.sched.finished):
+        raise AssertionError(f"{label}: a request finished twice")
+    done.update(local.sched.finished)
+    out = {r: q.generated for r, q in done.items()}
+    check_lengths(path2, out, trace, cfg.vocab_size)
+    log(f"[ewl] {label} pipelined engine ({EWL_BLOCKS} stages x "
+        f"{N_LAYERS // EWL_BLOCKS} layers from {source}, {M} microbatches, "
+        f"{pipe.n_slots} slots, pad_to {pipe.pad_to}): {ticks} ticks, "
+        f"{sum(tick_ms[:-1]) / (ticks - 1):.1f} ms a tick over the first "
+        f"{ticks - 1} (wall time; each: "
+        f"{', '.join(f'{t:.1f}' for t in tick_ms[:-1])} ms; the last ran "
+        f"under the profiler); {pipe.stats['prefills']} prompts admitted; "
+        f"mode switch: "
+        f"{started} adopted (cache recomputed once each), {queued} queued "
+        f"prefilled fresh, 0 re-prefills; local engine {s['decode_ticks']}"
+        f" decode ticks in {wall2:.3f} s; launches {counts} then {counts2}")
+    del local
+    torch.cuda.empty_cache()
+    return done
+
+
+def disaggregate(cfg, params, trace) -> None:
+    """A prefill-role engine streams each prefilled slot out
+    (``export_prefilled``) and a decode-role engine adopts it; each
+    adopted slot's pages, read back with ``paged_pack``, equal the
+    exported payload's bytes."""
+    import torch
+    from repro_torch.models import paged_pack
+    from repro_torch.serving import ContinuousBatchingEngine
+    kw = dict(n_slots=8, max_len=1024, page_size=16, prefix_sharing=True)
+    pre = ContinuousBatchingEngine(cfg, params, role="prefill",
+                                   max_prefill_per_tick=8, **kw)
+    dec = ContinuousBatchingEngine(cfg, params, role="decode", **kw)
+    for i, (p, n) in enumerate(trace):
+        pre.submit(p, n, req_id=i)
+    checked = []
+
+    def run():
+        while pre.step() or pre.sched.prefilled_slots():
+            pairs = pre.export_prefilled()
+            dec.adopt(pairs)
+            for seq, payload in pairs:
+                slot = next((i for i, q in enumerate(dec.sched.slots)
+                             if q is seq), None)
+                if slot is None:
+                    raise AssertionError(f"disagg: request {seq.req_id} "
+                                         f"parked instead of adopted")
+                ids = dec.pages.slot_pages(slot)
+                back = paged_pack(cfg, dec.cache, slot, ids,
+                                  payload.n_tokens, 16,
+                                  ship=[ids[p] for p in payload.carried])
+                for a, b in zip(_leaves(back.kv), _leaves(payload.kv)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"disagg: request {seq.req_id}'s adopted "
+                            f"pages differ from the exported payload")
+                checked.append(payload.nbytes)
+            dec.step()
+        return dec.run()
+    out, wall, counts = drive("qwen2.5-3b disagg", run)
+    check_lengths("qwen2.5-3b disagg", out, trace, cfg.vocab_size)
+    ps, ds = pre.stats, dec.stats
+    if len(checked) != len(trace) or ds["prefills"] or \
+            ps["exported"] != len(trace):
+        raise AssertionError(f"disagg: {len(checked)} payloads checked, "
+                             f"prefill {ps}, decode {ds}")
+    expect("qwen2.5-3b disagg", counts,
+           {"flash_attention": N_LAYERS * ps["prefills"],
+            "paged_decode_step": N_LAYERS * ds["decode_ticks"]})
+    log(f"[ewl] qwen2.5-3b disaggregation: {len(trace)} prompts prefilled, "
+        f"exported ({sum(checked) / 1e6:.1f} MB of PackedKV) and adopted; "
+        f"every adopted slot's pages byte-equal to its payload; "
+        f"{ds['decode_ticks']} decode ticks, {wall:.3f} s in all; launches "
+        f"{counts}")
+    del pre, dec
+    torch.cuda.empty_cache()
+
+
+def check_ewl_fp32(seed: int) -> None:
+    """The pipelined-then-adopted path in fp32 on 3 requests (stages cut
+    from the weights: no multicast), each token held to the plain
+    teacher-forced argmax."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import PipelinedEngine, stage_params
+    from repro_torch.models import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    stages = stage_params(cfg, params, EWL_BLOCKS, ["cuda"] * EWL_BLOCKS)
+    pipe = PipelinedEngine.from_stages(cfg, stages, n_microbatches=2,
+                                       n_slots=4, max_len=1024, pad_to=64,
+                                       max_prefill_per_tick=1)
+    trace = [(p, 24) for p, _ in ewl_trace(cfg.vocab_size, seed + 42, 3)]
+    done = pipelined_then_local(cfg, pipe, params, trace, "qwen2.5-3b fp32",
+                                "the weights", ticks=5)
+    checked = skipped = 0
+    for i, (prompt, _) in enumerate(trace):
+        c, k = teacher_forced(cfg, params, prompt, done[i].generated,
+                              f"qwen2.5-3b EWL request {i}", "paged")
+        checked, skipped = checked + c, skipped + k
+    if checked < (checked + skipped) // 2:
+        raise AssertionError(f"only {checked} tokens cleared the margin")
+    log(f"[fp32] qwen2.5-3b EWL fp32: {len(trace)} requests through the "
+        f"pipelined engine and the mode switch, {checked} tokens equal the "
+        f"plain teacher-forced argmax, {skipped} skipped (top-2 margin <= "
+        f"{MARGIN})")
+    del pipe, stages, params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1571,6 +1850,11 @@ def main() -> int:
     t0 = time.perf_counter()
     check_ssm_fp32(args.seed)
     log(f"[phase] 8 (xlstm-1.3b fp32) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_ewl(args.seed)
+    check_ewl_fp32(args.seed)
+    log(f"[phase] 9 (qwen2.5-3b execute-while-load) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"paged_decode_step": (csrc + "paged_decode_step.cu",

@@ -1,20 +1,25 @@
 """Paged KV allocation (the page pool's host-side bookkeeping) and the
 striped pool's slot copies.
 
-The PyTorch counterpart of ``repro.models.cache_ops`` (its ``PackedKV``
-handoff wire and the ``batch_axes`` detection are not ported).
-Attention K/V live in a shared pool of fixed-size token pages allocated
-on demand, so resident KV bytes scale with live tokens instead of
-``slots × max_len``.  ``PageTable`` is the block allocator — host-side free
-list + per-slot page lists + worst-case reservations for admission
-control — whose device-side table (``(n_slots, max_pages)`` int32, -1 =
-unallocated) the decode step consumes; ``PrefixIndex`` finds cached page
+The PyTorch counterpart of ``repro.models.cache_ops`` (its ``batch_axes``
+detection and ``cache_batch_concat`` serve the JAX package's stacked
+cache layout only and are not ported).  Attention K/V live in a shared
+pool of fixed-size token pages allocated on demand, so resident KV bytes
+scale with live tokens instead of ``slots × max_len``.  ``PageTable`` is
+the block allocator — host-side free list + per-slot page lists +
+worst-case reservations for admission control — whose device-side table
+(``(n_slots, max_pages)`` int32, -1 = unallocated) the decode step
+consumes; ``PrefixIndex`` finds cached page
 runs for copy-on-write prefix sharing.  Both are plain Python and numpy,
 copied from the JAX package; only ``device_table`` touches the device.
+``PackedKV`` is the page-granular handoff wire: one sequence's live pages
+and slot state, for mode switch, disaggregation and preemption.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -564,3 +569,106 @@ def cache_scatter(pool_cache, seq_cache, slot: int):
 def cache_gather(pool_cache, slot: int):
     """Row ``slot`` of a pooled striped cache as a batch-1 cache (copies)."""
     return _leaf_map(lambda pool: pool[slot:slot + 1].clone(), pool_cache)
+
+
+def _leaves(tree):
+    """Tensor leaves of nested dicts and lists, in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def bytes_as(raw: torch.Tensor, shape, dtype: torch.dtype) -> torch.Tensor:
+    """A 1-D uint8 tensor's bytes as a ``dtype`` tensor of ``shape``: a
+    view where the storage offset is a multiple of the item size, else a
+    copy (``Tensor.view(dtype)`` raises on a misaligned offset)."""
+    if raw.storage_offset() % dtype.itemsize:
+        raw = raw.clone()
+    return raw.view(dtype).reshape(shape)
+
+
+# ------------------------------------------------------- page-granular KV
+@dataclasses.dataclass
+class PackedKV:
+    """A sequence's live KV state packed page-granularly for the wire.
+
+    ``kv`` mirrors the paged cache's per-layer list for ONE sequence:
+    attention layers hold ``{"k", "v"}`` with only the sequence's live
+    pages, contiguous and in position order (shape (n_live_pages,
+    page_size, kv, dh)); recurrent layers hold their state dict batch-1.
+    ``nbytes`` is what a handoff actually moves (the pricing input for
+    the recompute-vs-transfer decision, §4.4) and ``wire()`` materializes
+    the single contiguous buffer a transport would send.
+
+    Prefix sharing dedupes pages on the wire: within one handoff export
+    (``batch`` tags it) each distinct source page ships once, so a
+    payload whose prefix rides in an earlier payload of the same batch
+    carries only its ``carried`` suffix positions in ``kv`` and names
+    every position's *source* page id in ``page_ids``.  The adopter
+    remaps source ids to its own pool's pages (sharing ones already
+    adopted), so the sharing structure survives the wire, and ``nbytes``
+    prices only the deduped bytes.
+    """
+    n_tokens: int
+    page_size: int
+    kv: Any
+    page_ids: Optional[Tuple[int, ...]] = None   # source pool page ids
+    carried: Optional[Tuple[int, ...]] = None    # positions present in kv
+    batch: Optional[int] = None                  # handoff export tag
+
+    @property
+    def n_pages(self) -> int:
+        return pages_for(self.n_tokens, self.page_size)
+
+    @property
+    def deduped(self) -> bool:
+        """True when some pages ride in another payload of the batch."""
+        return (self.carried is not None
+                and len(self.carried) < self.n_pages)
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in _leaves(self.kv)))
+
+    def wire(self) -> Tuple[torch.Tensor,
+                            List[Tuple[Tuple[int, ...], torch.dtype]]]:
+        """Flatten to one contiguous uint8 tensor on the leaves' device +
+        per-leaf (shape, dtype) spec (leaf order = ``kv``'s order)."""
+        leaves = list(_leaves(self.kv))
+        spec = [(tuple(t.shape), t.dtype) for t in leaves]
+        buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                         for t in leaves]) if leaves \
+            else torch.zeros((0,), dtype=torch.uint8)
+        return buf, spec
+
+    def from_wire(self, buf: torch.Tensor,
+                  spec: List[Tuple[Tuple[int, ...], torch.dtype]]
+                  ) -> "PackedKV":
+        """Rebuild the payload from a wire buffer (same structure as
+        self); leaves are views into ``buf`` where aligned."""
+        leaves, off = [], 0
+        for shape, dtype in spec:
+            n = math.prod(shape) * dtype.itemsize
+            leaves.append(bytes_as(buf[off:off + n], shape, dtype))
+            off += n
+        it = iter(leaves)
+        return PackedKV(self.n_tokens, self.page_size,
+                        _leaf_map(lambda _: next(it), self.kv),
+                        page_ids=self.page_ids, carried=self.carried,
+                        batch=self.batch)
+
+
+def payload_nbytes(payload: Any) -> int:
+    """Wire bytes of a handoff payload: a ``PackedKV`` (page-granular),
+    a raw batch-1 striped cache (``cache_gather``), or None."""
+    if payload is None:
+        return 0
+    if isinstance(payload, PackedKV):
+        return payload.nbytes
+    return int(sum(t.numel() * t.element_size() for t in _leaves(payload)))

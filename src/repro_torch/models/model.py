@@ -33,6 +33,7 @@ API:
   init_cache(cfg, n_slots, max_len, ...)            -> zeroed striped cache
   cache_from_prefill(cfg, kv, max_len, n_tokens)    -> striped cache
   init_paged_cache(cfg, n_slots, ...)               -> zeroed paged cache
+  paged_pack / paged_adopt_scatter / pack_single_cache -> the PackedKV wire
   make_batch(cfg, batch, seq_len, seed, device)     -> {"tokens"}
 """
 from __future__ import annotations
@@ -48,8 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import xlstm as X
-from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, paged_geometry,
-                                          pages_for)
+from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, PackedKV,
+                                          paged_geometry, pages_for)
 
 Params = Dict[str, Any]
 FAMILIES = ("dense", "hybrid", "ssm")
@@ -144,6 +145,27 @@ def _ffn_block(p: Params, x, cfg: ModelConfig):
     return x + L.apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg)
 
 
+# ============================================================ layer (full)
+def _apply_layer_full(lp: Params, x, cfg: ModelConfig, mixer: str,
+                      positions, kernel_impl: str):
+    """One layer over a whole sequence whose positions are 0..S-1: the
+    mixer, its residual and the ffn block.  Returns (x, state): the
+    attention (k, v) (B,S,kv,dh) or the recurrent layer's final state."""
+    h = L.apply_norm(lp["norm1"], x, cfg)
+    if mixer == "rec":
+        a, state = R.apply_rec(lp["rec"], h, cfg, kernel_impl=kernel_impl)
+    elif mixer == "mlstm":
+        a, state = X.apply_mlstm(lp["mlstm"], h, cfg,
+                                 kernel_impl=kernel_impl)
+    elif mixer == "slstm":
+        a, state = X.apply_slstm(lp["slstm"], h, cfg)
+    else:
+        a, state = L.full_attention(
+            lp["attn"], h, cfg, positions, rope=cfg.rope_pct > 0.0,
+            window=_mixer_window(cfg, mixer), kernel_impl=kernel_impl)
+    return _ffn_block(lp, x + a, cfg), state
+
+
 # ================================================================= forward
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
@@ -160,24 +182,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    rope = cfg.rope_pct > 0.0
     x = _embed_tokens(cfg, params, tokens)
     kv: List[Any] = []
     for lp, mixer in zip(params["layers"], _mixers(cfg)):
-        h = L.apply_norm(lp["norm1"], x, cfg)
-        if mixer == "rec":
-            a, state = R.apply_rec(lp["rec"], h, cfg,
-                                    kernel_impl=kernel_impl)
-        elif mixer == "mlstm":
-            a, state = X.apply_mlstm(lp["mlstm"], h, cfg,
-                                     kernel_impl=kernel_impl)
-        elif mixer == "slstm":
-            a, state = X.apply_slstm(lp["slstm"], h, cfg)
-        else:
-            a, state = L.full_attention(
-                lp["attn"], h, cfg, positions, rope=rope,
-                window=_mixer_window(cfg, mixer), kernel_impl=kernel_impl)
-        x = _ffn_block(lp, x + a, cfg)
+        x, state = _apply_layer_full(lp, x, cfg, mixer, positions,
+                                     kernel_impl)
         if build_cache:
             kv.append(state)
     if last_only:
@@ -419,3 +428,77 @@ def paged_copy_page(cfg: ModelConfig, cache, src: int, dst: int):
         pool["k"][dst] = pool["k"][src]
         pool["v"][dst] = pool["v"][src]
     return cache
+
+
+# ============================================================ PackedKV wire
+def paged_pack(cfg: ModelConfig, cache, slot: int, page_ids,
+               n_tokens: int, page_size: int, *, ship=None) -> PackedKV:
+    """Copy ``slot``'s live pages (and its slot-state rows) out of the
+    paged cache into a page-granular handoff payload.  ``page_size`` is
+    the owning engine's: it cannot be read off a cache with no attention
+    layer (pure-recurrent caches carry no pools).  ``ship`` restricts the
+    pool gather to a subset of the page ids (wire dedupe: pages already
+    carried by an earlier payload of the same export are referenced, not
+    re-shipped)."""
+    ids = torch.tensor(list(page_ids if ship is None else ship),
+                       dtype=torch.long, device=cache["pos"].device)
+    kv = []
+    for entry, mixer in zip(cache["layers"], _mixers(cfg)):
+        if mixer in ATTN_MIXERS:
+            assert entry["k"].shape[1] == page_size, \
+                (entry["k"].shape, page_size)
+            kv.append({"k": entry["k"].index_select(0, ids),
+                       "v": entry["v"].index_select(0, ids)})
+        else:
+            kv.append({name: t[slot:slot + 1].clone()
+                       for name, t in entry.items()})
+    return PackedKV(int(n_tokens), page_size, kv)
+
+
+def paged_adopt_scatter(cfg: ModelConfig, cache, packed: PackedKV,
+                        slot: int, page_ids):
+    """Copy-on-adopt, in place: write a handed-off ``PackedKV`` into pages
+    ``page_ids`` of THIS engine's pool (fresh pages, never the source's)
+    and its state into row ``slot``; the slot's position becomes the
+    payload's token count."""
+    ids = torch.tensor(list(page_ids), dtype=torch.long,
+                       device=cache["pos"].device)
+    cache["pos"][slot] = packed.n_tokens
+    for dst, src, mixer in zip(cache["layers"], packed.kv, _mixers(cfg)):
+        if mixer in ATTN_MIXERS:
+            for name in ("k", "v"):
+                dst[name].index_copy_(0, ids, src[name].to(
+                    device=dst[name].device, dtype=dst[name].dtype))
+        else:
+            for name, t in dst.items():
+                t[slot] = src[name][0].to(device=t.device, dtype=t.dtype)
+    return cache
+
+
+def pack_single_cache(cfg: ModelConfig, single_cache,
+                      page_size: int) -> PackedKV:
+    """Repack a batch-1 striped cache (``cache_from_prefill``) into the
+    page-granular wire form, so a recomputed cache ships and adopts
+    exactly like a live-gathered one.  Each attention ring is laid out
+    linearly by its stored positions (a ring of width min(window,
+    max_len) keeps only its last W tokens; the positions it dropped stay
+    zero, as decode masks them)."""
+    n_tokens = int(single_cache["pos"][0])
+    n_pages = max(pages_for(n_tokens, page_size), 1)
+    width = n_pages * page_size
+    kv = []
+    for entry, mixer in zip(single_cache["layers"], _mixers(cfg)):
+        if mixer not in ATTN_MIXERS:
+            kv.append(entry)                                   # batch-1
+            continue
+        spos = entry["pos"][0].long()
+        idx = torch.where(spos >= 0, spos, width)              # → dropped
+
+        def lin(leaf):
+            arr = torch.zeros((width + 1,) + tuple(leaf.shape[2:]),
+                              dtype=leaf.dtype, device=leaf.device)
+            arr[idx] = leaf[0]
+            return arr[:width].reshape((n_pages, page_size)
+                                       + tuple(leaf.shape[2:]))
+        kv.append({"k": lin(entry["k"]), "v": lin(entry["v"])})
+    return PackedKV(n_tokens, page_size, kv)

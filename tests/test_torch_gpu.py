@@ -809,3 +809,213 @@ def test_mlstm_chunkwise_bf16_resumes_from_state(cuda, split):
     torch.cuda.synchronize()
     _mlstm_close((torch.cat([h1, h2], 2), st),
                  (torch.cat([hr1, hr2], 2), st_r), 5e-2, f"split {split}")
+
+
+# ------------------------------------------------ the execute-while-load path
+@pytest.mark.gpu
+def test_paged_pack_adopt_roundtrip_on_card(cuda):
+    """``paged_pack`` of a slot's pages out of a random bf16 paged cache on
+    the card, ``paged_adopt_scatter`` into other pages of a second cache,
+    and a pack of those pages again: the same bytes, pools and position."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import (init_paged_cache, paged_adopt_scatter,
+                                    paged_pack)
+    cfg = reduced(get_config("qwen2.5-3b"), d_model=64)
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    caches = []
+    for _ in range(2):
+        c = init_paged_cache(cfg, 3, page_size=16, n_pages=8, max_pages=8,
+                             dtype=torch.bfloat16, device=cuda)
+        for entry in c["layers"]:
+            for t in entry.values():
+                t.normal_(generator=gen)
+        caches.append(c)
+    src, dst = caches
+    packed = paged_pack(cfg, src, 1, [6, 1, 3], 37, 16)
+    buf, spec = packed.wire()
+    assert buf.device == packed.kv[0]["k"].device
+    assert buf.numel() == packed.nbytes
+    paged_adopt_scatter(cfg, dst, packed.from_wire(buf, spec), 2, [0, 7, 4])
+    back = paged_pack(cfg, dst, 2, [0, 7, 4], 37, 16)
+    assert int(dst["pos"][2]) == 37
+    for a, b in zip(packed.kv, back.kv):
+        for name in ("k", "v"):
+            assert torch.equal(a[name].view(torch.int16),
+                               b[name].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_multicast_on_card_equals_reference(cuda):
+    """Single-process multicast over per-node uint8 buffers on the card,
+    1 -> 8 binomial and 2 -> 8 k-way, against the numpy oracle."""
+    from repro_torch.core.multicast import binomial_schedule, kway_schedule
+    from repro_torch.distributed import multicast, multicast_reference
+    rng = np.random.default_rng(SEED)
+    for k, sched in ((1, binomial_schedule(8, 6)),
+                     (2, kway_schedule(8, 6, 2))):
+        blocks = np.zeros((8, 6, 4096), np.uint8)
+        blocks[:k] = rng.integers(0, 255, (6, 4096), dtype=np.uint8)
+        bufs = [torch.from_numpy(b.copy()).to(cuda) for b in blocks]
+        multicast(bufs, sched)
+        want = multicast_reference(blocks, sched)
+        for n in range(8):
+            np.testing.assert_array_equal(bufs[n].cpu().numpy(), want[n])
+            np.testing.assert_array_equal(want[n], blocks[0])
+
+
+@pytest.mark.gpu
+def test_preempt_export_readopt_on_card_equals_uninterrupted(cuda):
+    """A reduced fp32 qwen2.5-3b engine on the card: preempting a decoding
+    request over the PackedKV wire and adopting it back later gives the
+    same tokens as an uninterrupted run (the kernels on both)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine
+    cfg = reduced(get_config("qwen2.5-3b"), d_model=64)
+    params = init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(SEED)
+    prompts = [list(map(int, rng.integers(0, 512, n))) for n in (6, 21)]
+
+    def engine():
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=48,
+                                       page_size=16)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 12, req_id=i)
+        return eng
+
+    want = engine().run()
+    eng = engine()
+    for _ in range(4):
+        eng.step()
+    slot = next(i for i in eng.sched.live_slots()
+                if eng.sched.slots[i] is not None
+                and eng.sched.slots[i].generated)
+    eng.preempt_export([slot])
+    parked = eng.take_preempted()
+    for _ in range(3):
+        eng.step()
+    eng.adopt([(seq, payload) for seq, payload, _ in parked])
+    got = eng.run()
+    assert got == want and eng.stats["preempted"] == 1
+
+
+@pytest.mark.gpu
+def test_multicast_group_nccl_world_size_one(cuda):
+    """``multicast_group`` under an NCCL process group of one rank: the
+    backend initialises, a 1-node schedule (no transfer) leaves the
+    buffer as it was, and a barrier goes through NCCL.  Transfers across
+    cards need more than one card and are not checked here."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.multicast import binomial_schedule
+    from repro_torch.distributed import multicast_group
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        buf = torch.arange(4 * 256, device=cuda).to(torch.uint8)
+        before = buf.clone().reshape(4, 256)
+        out = multicast_group(buf.reshape(4, 256), binomial_schedule(1, 4),
+                              0)
+        dist.barrier(device_ids=[cuda.index or 0])
+        assert torch.equal(out, before)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cards(n_min):
+    n = torch.cuda.device_count()
+    if n < n_min:
+        pytest.skip(f"needs {n_min} or more CUDA devices, found {n}")
+    return min(n, 4)
+
+
+NCCL_RANK = r"""
+import datetime, sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.core.multicast import binomial_schedule, kway_schedule
+from repro_torch.distributed import multicast_group, multicast_reference
+
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank,
+                        timeout=datetime.timedelta(seconds=60))
+for k in (1, 2):
+    sched = binomial_schedule(world, 6) if k == 1 \
+        else kway_schedule(world, 6, k)
+    src = np.random.default_rng(k).integers(0, 255, (6, 1 << 20),
+                                            dtype=np.uint8)
+    blocks = np.zeros((world, 6, 1 << 20), np.uint8)
+    blocks[:k] = src
+    buf = torch.from_numpy(blocks[rank].copy()).cuda()
+    multicast_group(buf, sched, rank)
+    want = multicast_reference(blocks, sched)[rank]
+    assert (buf.cpu().numpy() == want).all() and (want == src).all(), k
+dist.barrier()
+dist.destroy_process_group()
+print("RANK-OK", rank)
+"""
+
+
+@pytest.mark.gpu
+def test_multicast_group_nccl_across_cards(cuda):
+    """``multicast_group`` on NCCL, one rank a card (up to four), 1 -> N
+    binomial and 2 -> N k-way schedules of 1 MiB blocks, against the
+    numpy oracle; every rank a process with a bounded wait."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    world = _cards(2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_RANK, str(r),
+                               str(world), port], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK-OK {r}" in out, err[-3000:]
+
+
+@pytest.mark.gpu
+def test_pipelined_forward_across_cards(cuda):
+    """A reduced fp32 qwen2.5-3b with one pipeline stage a card (up to
+    four), two microbatches: the logits agree with the one-card forward
+    within 1e-4, and the flash kernel ran on every card."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import pipelined_forward, stage_params
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import forward, init_params
+    n = _cards(2)
+    cfg = reduced(get_config("qwen2.5-3b"), d_model=64, n_layers=8)
+    params = init_params(cfg, seed=2, device=cuda)
+    stages = stage_params(cfg, params, n, [f"cuda:{i}" for i in range(n)])
+    assert [st.flat["@layer%04d/['attn']['wq']" % st.lo].device.index
+            for st in stages] == list(range(n))
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 512, (4, 40))).to(cuda)
+    before = flash_attention.launches
+    out = pipelined_forward(cfg, stages, {"tokens": tokens}, 2)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 2 * cfg.n_layers
+    ref = forward(cfg, params, {"tokens": tokens})["logits"]
+    assert out.device.index == n - 1
+    torch.testing.assert_close(out.to(cuda), ref, atol=1e-4, rtol=1e-4)
