@@ -63,7 +63,30 @@ Phases (any failure exits non-zero, with no result line):
      prefills), decode-step launches == 36 x local decode ticks), then a
      prefill-role engine exporting to a decode-role one (adopted pages
      byte-equal to the payloads), and the pipelined-then-adopted path in
-     fp32 on 3 requests held to the plain teacher-forced argmax.
+     fp32 on 3 requests held to the plain teacher-forced argmax;
+ 10. the live cluster (``serving.cluster.LiveCluster``, every node on
+     cuda:0) at full width: (a) the ``--live`` shape, qwen2.5-3b hot on
+     node 0 of 8 scaling to 3 new nodes while stablelm-1.6b scales from
+     a host-warm copy to 3 more, with 24 requests served through λPipe
+     pipelines mid-multicast and local replicas after the mode switch
+     (every node's wire bytes equal the registry, one receiver per model
+     unpacked bit-equal to its source, every request finished once with
+     its budget, at least one adopted and none re-prefilled per model,
+     one tick with all eight engines profiled); (b) the ``--autoscale``
+     shape, qwen2.5-3b from zero replicas under the autoscaler on the
+     simulated clock, up from the host tier and down after its
+     keep-alive, each scale-down freeing at least a replica's device
+     bytes; (c) qwen2.5-3b, then stablelm-1.6b, in fp32 on 4 nodes:
+     ``forward`` on two token batches at every multicast step, the
+     serving pipeline's ``forward_fn`` at ``last=`` rows and every
+     node's local forward after the scale held to the plain fp32
+     forward within CLUSTER_FP32_TOL of its largest logit, and 4
+     requests prefilled in the pipeline, adopted at the mode switch (at
+     least 2) and held to the plain teacher-forced argmax.  decode-step
+     launches == layers x every local engine's decode ticks on 10a and
+     10c; flash launched on every path.  Phase 2 holds both kernels to
+     their plain versions at stablelm-1.6b's shape too (32/32 heads,
+     dh 64).
 Each path is driven with every launch count set to 0 just before it and
 read just after.  The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
@@ -286,12 +309,14 @@ def _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free=()):
 
 def check_paged_step(errs, dtype_name):
     """The fused step at qwen2.5-3b's paged shape (8 slots, 16/2 heads,
-    dh 128, a 2048-token pool) and recurrentgemma-2b's (8 slots, 10/1
+    dh 128, a 2048-token pool), recurrentgemma-2b's (8 slots, 10/1
     heads: g = 10 query heads per CTA, more than its 8 warps; dh 256; a
-    3072-token pool, window 2048 on and off), over edge lens, FREE rows
-    and a NaN trash page; then one and two slots with long lens at both
-    shapes (the split walk's few-slot ticks).  The pools must be byte-equal
-    outside the trash page."""
+    3072-token pool, window 2048 on and off) and stablelm-1.6b's in the
+    live cluster (8 slots, 32/32 heads: group 1; dh 64; a 1024-token
+    pool, no window), over edge lens, FREE rows and a NaN trash page;
+    then one and two slots with long lens at every shape (the split
+    walk's few-slot ticks).  The pools must be byte-equal outside the
+    trash page."""
     import torch
     from repro_torch.kernels import paged_decode_step
     from repro_torch.kernels.ref import paged_decode_step_ref
@@ -299,13 +324,17 @@ def check_paged_step(errs, dtype_name):
     gen = torch.Generator(device="cuda").manual_seed(1)
     B, ps = 8, 16
     # (label, H, KVH, dh, max_len, edge lens, FREE-case lens (rows 2 and 5
-    # FREE), window of the edge case, window of the FREE and random cases)
+    # FREE), window of the edge case, window of the FREE and random cases;
+    # None: the model has no window, and its windowed cases are dropped)
     shapes = [("qwen", 16, 2, 128, 2048, [0, 1, ps - 1, ps, ps + 1, 2048,
                                           700, 1500],
                [300, 9, 0, 47, 1024, 0, 17, 2048], 100, 512),
               ("recurrentgemma", 10, 1, 256, 3072,
                [0, 1, ps + 1, 2048, 2049, 2600, 3072, 1500],
-               [2500, 9, 0, 47, 2049, 0, 17, 3072], 2048, 2048)]
+               [2500, 9, 0, 47, 2049, 0, 17, 3072], 2048, 2048),
+              ("stablelm", 32, 32, 64, 1024, [0, 1, ps - 1, ps, ps + 1, 1024,
+                                              700, 333],
+               [300, 9, 0, 47, 1024, 0, 17, 1000], None, None)]
     for label, H, KVH, dh, max_len, edge, free_lens, w_edge, w_rand in shapes:
         MP = max_len // ps
         full = MP * ps
@@ -318,6 +347,8 @@ def check_paged_step(errs, dtype_name):
                  (f"random lens, window {w_rand}", torch.randint(
                      0, full + 1, (B,), generator=torch.Generator()
                      .manual_seed(7)), w_rand, ())]
+        if w_edge is None:
+            cases = [cases[0], cases[2], cases[4]]
         for what, lens, window, free in cases:
             what = f"{label} H={H} KVH={KVH} dh={dh} {what}"
             x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, dtype, free)
@@ -355,7 +386,9 @@ def check_paged_step(errs, dtype_name):
                     (None, 512)),
                    ("recurrentgemma", 10, 1, 256, 3072, [[3000],
                                                          [3072, 2049]],
-                    (2048, None))]
+                    (2048, None)),
+                   ("stablelm", 32, 32, 64, 1024, [[1023], [1024, 517]],
+                    (None,))]
     for label, H, KVH, dh, max_len, lens_sets, windows in split_cases:
         MP = max_len // ps
         for lens in lens_sets:
@@ -385,8 +418,10 @@ def check_paged_step(errs, dtype_name):
 
 def check_flash(errs, dtype_name):
     """qwen2.5-3b's prefill shape (H=16, KVH=2, dh=128),
-    recurrentgemma-2b's (H=10, KVH=1, dh=256, window 2048), and head dims
-    the bf16 kernel zero-pads to its 64 and 256 buckets (8, 24, 192)."""
+    recurrentgemma-2b's (H=10, KVH=1, dh=256, window 2048),
+    stablelm-1.6b's in the live cluster (H=32, KVH=32, dh=64, no window,
+    prompts up to 512), and head dims the bf16 kernel zero-pads to its 64
+    and 256 buckets (8, 24, 192)."""
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -396,6 +431,7 @@ def check_flash(errs, dtype_name):
              for w in (None, 256)]
     cases += [(10, 1, 256, S, w) for S in (1, 17, 2048, 2600)
               for w in (None, 2048)]
+    cases += [(32, 32, 64, S, None) for S in (1, 17, 64, 300, 512)]
     cases += [(10, 1, dh, S, w) for dh in (8, 24, 192) for S in (5, 100, 1000)
               for w in (None, 40)]
     for H, KVH, dh, S, window in cases:
@@ -1765,6 +1801,433 @@ def check_ewl_fp32(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 10
+# (name, arch, weight seed offset): qwen hot on node 0, stablelm host-warm
+CLUSTER_MODELS = (("qwen", "qwen2.5-3b", 0), ("stablelm", "stablelm-1.6b", 1))
+CLUSTER_BLOCKS = 4
+# fp32 sub-phase: max |cluster logits - plain fp32 forward| over the
+# largest |plain logit|, at every multicast step in both modes
+CLUSTER_FP32_TOL = 1e-3
+
+
+def _n_layers(lc, m) -> int:
+    return lc.models[m].cfg.n_layers
+
+
+def cluster_requests(lc, n: int, seed: int):
+    """``n`` requests alternating between the registered models: prompts
+    64..512 tokens, 24..64 new tokens; the first two of each model share
+    a 256-token prefix.  Returns [(model, prompt, new)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    models = list(lc.models)
+    tok = lambda m, k: list(map(int, rng.integers(
+        0, lc.models[m].cfg.vocab_size, int(k))))
+    base = {m: tok(m, 256) for m in models}
+    out = []
+    for i in range(n):
+        m = models[i % len(models)]
+        if i < 2 * len(models):
+            prompt = base[m] + tok(m, rng.integers(8, 257))
+        else:
+            prompt = tok(m, rng.integers(64, 513))
+        out.append((m, prompt, int(rng.integers(24, 65))))
+    return out
+
+
+def check_cluster_served(lc, want, label: str):
+    """Every request finished exactly once, with its full budget, and no
+    request was prefilled twice (the prefills of every instance sum to
+    the requests).  Returns (adopted by model, re-prefilled)."""
+    seen = {}
+    prefills = 0
+    adopted = {}
+    for m, sv in lc.serving.items():
+        scheds = ([e.sched for e in sv.locals_.values()]
+                  + [e.sched for e in sv.prefills.values()]
+                  + [p.engine.sched for p in sv.pipes])
+        for s in scheds:
+            prefills += s.stats["prefills"]
+            for rid in s.finished:
+                seen[rid] = seen.get(rid, 0) + 1
+        adopted[m] = sum(e.stats["adopted"] for e in sv.locals_.values())
+        for rid in lc._retired_results.get(m, {}):
+            seen[rid] = seen.get(rid, 0) + 1
+    twice = {r: c for r, c in seen.items() if c != 1}
+    if twice or set(seen) != set(want):
+        raise AssertionError(f"{label}: finished counts {twice}, missing "
+                             f"{sorted(set(want) - set(seen))}")
+    for rid, (m, n_new) in want.items():
+        toks = lc.results(m)[rid]
+        vocab = lc.models[m].cfg.vocab_size
+        if len(toks) != n_new or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label} request {rid}: {len(toks)} "
+                                 f"tokens, want {n_new}")
+    return adopted, prefills - len(want)
+
+
+def expect_cluster_decode(lc, path: str, counts) -> None:
+    """paged_decode_step launches == layers x decode ticks, summed over
+    every local engine (pipelines keep no cache and launch none); flash
+    launched at least once."""
+    want = sum(_n_layers(lc, m) * e.stats["decode_ticks"]
+               for m, sv in lc.serving.items()
+               for e in list(sv.locals_.values()) + list(sv.prefills.values()))
+    got = counts["paged_decode_step"]
+    if got != want or counts["flash_attention"] <= 0:
+        raise AssertionError(f"{path}: paged_decode_step {got} launches, "
+                             f"want {want}; all {counts}")
+
+
+def register_cluster_models(lc, dtype, seed: int, placement):
+    """Random weights from ``seed`` for each model, packed by ``register``
+    into CLUSTER_BLOCKS wire blocks; the weights are dropped afterwards
+    (the registry and the node tiers hold the model).  Returns the
+    seconds each registration took."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    took = {}
+    for name, arch, off in CLUSTER_MODELS:
+        if name not in placement:
+            continue
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=seed + off, dtype=dtype,
+                             device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lc.register(name, cfg, params, n_blocks=CLUSTER_BLOCKS,
+                    **placement[name])
+        torch.cuda.synchronize()
+        took[name] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+    return took
+
+
+def check_wire_and_unpack(lc, model: str, source: int, label: str) -> None:
+    """Every node's wire buffers equal the registry byte for byte; the
+    last node to complete has tensors bit-equal to the source's."""
+    import numpy as np
+    import torch
+    dep = lc.models[model]
+    nodes = lc.complete_nodes(model)
+    for nd in nodes:
+        bufs = lc.nodes[nd].gpu_shard(model).buffers
+        for b in range(dep.n_blocks):
+            if not np.array_equal(bufs[b], dep.registry[b]):
+                raise AssertionError(f"{label}: node {nd} block {b} wire "
+                                     f"bytes differ from the registry")
+    src = lc.nodes[source].gpu_shard(model).flat
+    rcv = lc.nodes[nodes[-1]].gpu_shard(model).flat
+    if sorted(src) != sorted(rcv) or not all(
+            rcv[k].dtype == t.dtype and torch.equal(rcv[k], t)
+            for k, t in src.items()):
+        raise AssertionError(f"{label}: node {nodes[-1]}'s unpacked tensors "
+                             f"differ from source node {source}'s")
+
+
+def reckon_cluster_bytes(lc, nodes) -> float:
+    """Predicted device bytes: each node's copy of its model's padded
+    wire blocks plus each engine's KV pool."""
+    total = 0.0
+    for m, n in nodes.items():
+        total += n * lc.models[m].nbytes
+        for eng in lc.serving[m].locals_.values():
+            total += sum(t.numel() * t.element_size()
+                         for t in _leaves(eng.cache) if hasattr(t, "numel"))
+    return total
+
+
+def serve_cluster_live(seed: int) -> None:
+    """10a: the ``--live`` shape at full width: qwen2.5-3b hot on node 0
+    scales 1 -> 3 new nodes while stablelm-1.6b scales from its host-warm
+    copy on node 7 to 3 new nodes; the burst is served through λPipe
+    pipelines mid-multicast and local replicas after the mode switch.
+    (A 1 -> 2 scale of 4 blocks completes its second node at the step
+    its only pipeline becomes ready, so no pipeline would serve; and the
+    hot source's 8 slots take 8 requests, so 12 a model leave 4 for the
+    pipelines.)"""
+    import gc
+    import torch
+    from repro_torch.serving import LiveCluster
+    torch.cuda.reset_peak_memory_stats()
+    lc = LiveCluster(n_nodes=8, n_slots=8, max_len=1024, paged=True,
+                     page_size=16, prefix_sharing=True, device="cuda")
+    took = register_cluster_models(
+        lc, torch.bfloat16, seed,
+        {"qwen": {"hot_nodes": [0]}, "stablelm": {"warm_nodes": [7]}})
+    reports = {"qwen": lc.scale("qwen", 3), "stablelm": lc.scale("stablelm",
+                                                                 3)}
+    tiers = {m: r.source_tier for m, r in reports.items()}
+    if tiers != {"qwen": "gpu", "stablelm": "host"} or \
+            set(reports["qwen"].dests) & set(reports["stablelm"].dests):
+        raise AssertionError(f"cluster-live: scale reports {reports}")
+    # block rows the multicast steps copy host -> device (one per
+    # (src, dst, block) of each schedule)
+    moved = sum(len(step) * lc.models[m].block_nbytes
+                for m, sc in lc.scales.items()
+                for step in sc.plan.schedule.steps)
+    reqs = cluster_requests(lc, 24, seed + 50)
+    want = {}
+    for m, prompt, n_new in reqs:
+        want[lc.submit(m, prompt, n_new)] = (m, n_new)
+    ticks = [0, 0]      # cluster ticks during the multicasts, after them
+    tick_s, step_s = [], []
+
+    def serve():
+        while True:
+            t0 = time.perf_counter()
+            more = lc.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if not more:
+                break
+            t0 = time.perf_counter()
+            lc.tick()
+            tick_s.append(time.perf_counter() - t0)
+            ticks[0] += 1
+        # every node holds its model now: one tick with all eight
+        # engines live under the profiler
+        profile_call(lc.tick, "cluster-live tick, 8 engines live", top=8)
+        ticks[1] += 1
+        while True:
+            t0 = time.perf_counter()
+            busy = lc.tick()
+            tick_s.append(time.perf_counter() - t0)
+            if not busy:
+                break
+            ticks[1] += 1
+        lc.drain_serving()
+    _, wall, counts = drive("cluster-live", serve)
+    adopted, reprefilled = check_cluster_served(lc, want, "cluster-live")
+    if reprefilled or not all(adopted.values()):
+        raise AssertionError(f"cluster-live: adopted {adopted}, "
+                             f"re-prefilled {reprefilled}")
+    expect_cluster_decode(lc, "cluster-live", counts)
+    for m, r in reports.items():
+        check_wire_and_unpack(lc, m, r.sources[0], f"cluster-live {m}")
+    peak = torch.cuda.max_memory_allocated()
+    nodes = {m: len(lc.complete_nodes(m)) for m in lc.models}
+    reckoned = reckon_cluster_bytes(lc, nodes)
+    n_tok = sum(n for _, n in want.values())
+    log(f"[cluster] 10a live: registered "
+        + ", ".join(f"{m} {lc.models[m].nbytes / 1e9:.3f} GB padded wire "
+                    f"in {took[m]:.2f} s" for m in lc.models)
+        + "; scale " + ", ".join(
+            f"{m} {r.source_tier}-tier {r.sources} -> {list(r.dests)} first "
+            f"serve {r.t_first_serve * 1e3:.2f} ms, complete "
+            f"{r.t_complete * 1e3:.2f} ms" for m, r in reports.items())
+        + " (simulated clock, H800 profile)")
+    log(f"[cluster] 10a live: the multicast steps copied {moved / 1e9:.3f}"
+        f" GB of block rows from pageable host memory to the device and "
+        f"built the mode-switched engines in {sum(step_s):.3f} s "
+        f"({moved / sum(step_s) / 1e9:.2f} GB/s over both; per step "
+        + ", ".join(f"{t:.3f}" for t in step_s) + " s)")
+    log(f"[cluster] 10a live: {len(want)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s wall; {ticks[0]} cluster ticks during the multicasts"
+        f" + {ticks[1]} after; {sum(tick_s) / len(tick_s) * 1e3:.1f} ms "
+        f"wall per tick (unprofiled); adopted {adopted}, re-prefilled "
+        f"{reprefilled}; handoffs "
+        f"{sum(d.chosen == 'recompute' for d in lc.handoff_log)} recompute"
+        f" / {sum(d.chosen == 'transfer' for d in lc.handoff_log)} transfer;"
+        f" engines' decode ticks " + ", ".join(
+            f"{m} {[e.stats['decode_ticks'] for e in sv.locals_.values()]}"
+            for m, sv in lc.serving.items())
+        + f"; peak device memory {peak / 1e9:.2f} GB (reckoned "
+        f"{reckoned / 1e9:.2f} GB of replicas and KV pools); launches "
+        f"{counts}")
+    del lc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_cluster_autoscale(seed: int) -> None:
+    """10b: the ``--autoscale`` shape: qwen2.5-3b host-warm on node 0 with
+    zero replicas; the autoscaler scales it up from the host tier for a
+    16-request burst on the simulated clock and back down after its
+    keep-alive, and every scale-down frees the replicas' device bytes."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.serving import (Autoscaler, AutoscalerConfig,
+                                     LiveCluster, Request)
+    torch.cuda.reset_peak_memory_stats()
+    lc = LiveCluster(n_nodes=4, n_slots=8, max_len=1024, paged=True,
+                     page_size=16, prefix_sharing=True, device="cuda")
+    register_cluster_models(lc, torch.bfloat16, seed,
+                            {"qwen": {"warm_nodes": [0]}})
+    rng = np.random.default_rng(seed + 60)
+    trace = [Request(i, "qwen", 0.005 + 0.002 * i, int(rng.integers(64, 513)),
+                     int(rng.integers(24, 65))) for i in range(16)]
+    asc = Autoscaler(AutoscalerConfig(cooldown_up=0.05, cooldown_down=0.02,
+                                      keepalive=0.15, min_replicas=0,
+                                      max_k=2))
+    freed = []
+    scale_down = lc.scale_down
+
+    def measured_scale_down(model, nodes, park="host"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        scale_down(model, nodes, park=park)
+        torch.cuda.synchronize()
+        freed.append((len(nodes), before - torch.cuda.memory_allocated()))
+    lc.scale_down = measured_scale_down
+    ticks = [0]
+    tick = lc.tick
+
+    def counted_tick():
+        ticks[0] += 1
+        return tick()
+    lc.tick = counted_tick
+    log_, wall, counts = drive("cluster-autoscale", lambda: lc.replay(
+        trace, autoscaler=asc, tick_seconds=0.002, tail_seconds=0.5))
+    s = log_.summary()
+    events = [(e.kind, e.detail) for e in log_.scale_events]
+    ups = [d for k, d in events if k == "up" and "tier=host" in d]
+    downs = [d for k, d in events if k == "down" and "keepalive" in d]
+    if s["n_finished"] != len(trace) or not ups or not downs:
+        raise AssertionError(f"cluster-autoscale: {s['n_finished']} of "
+                             f"{len(trace)} finished; events {events}")
+    replica = lc.models["qwen"].nbytes
+    if not freed or not all(b >= n * replica for n, b in freed):
+        raise AssertionError(f"cluster-autoscale: scale-downs (nodes, bytes "
+                             f"freed) {freed}, one replica is {replica:.0f}")
+    if counts["paged_decode_step"] <= 0 or counts["flash_attention"] <= 0:
+        raise AssertionError(f"cluster-autoscale: launches {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[cluster] 10b autoscale: {int(s['n_finished'])}/{len(trace)} "
+        f"requests in {wall:.3f} s wall, {ticks[0]} cluster ticks, "
+        f"{wall / ticks[0] * 1e3:.1f} ms wall per tick; TTFT p50 "
+        f"{s['ttft_p50'] * 1e3:.2f} ms p99 {s['ttft_p99'] * 1e3:.2f} ms, "
+        f"gpu_seconds {s['gpu_seconds']:.4f} (simulated clock, H800 "
+        f"profile); scale events {events}; scale-downs freed "
+        + ", ".join(f"{b / 1e9:.3f} GB for {n} node(s)" for n, b in freed)
+        + f" (one replica {replica / 1e9:.3f} GB); peak device memory "
+        f"{peak / 1e9:.2f} GB; launches {counts}")
+    del lc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_cluster_fp32(seed: int, model: str) -> None:
+    """10c: ``model`` (qwen2.5-3b; stablelm-1.6b: MHA at dh 64, LayerNorm
+    with partial rotary) in fp32, hot on node 0 of 4, scaled by 3.  At
+    every multicast step ``forward`` on two token batches (local on the
+    source, the pipeline while it is the best option, then local) is held
+    to the plain fp32 forward on the same weights; once a serving pipeline
+    is live, its own ``forward_fn`` at ``last=`` rows is held to those
+    rows; after the scale every node's local forward is held to it.  4
+    requests submitted once the pipeline is live are prefilled in it,
+    handed off at the mode switch (at least 2 adopted, none prefilled
+    again) and held to the plain teacher-forced argmax.  (On 3 nodes the
+    plan's only pipeline is ready at the step its members complete: no
+    pipeline mode.)"""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.core.blocks import unflatten_params
+    from repro_torch.models import forward
+    from repro_torch.serving import LiveCluster
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    lc = LiveCluster(n_nodes=4, n_slots=4, max_len=512, paged=True,
+                     page_size=16, prefix_sharing=True, device="cuda")
+    register_cluster_models(lc, torch.float32, seed,
+                            {model: {"hot_nodes": [0]}})
+    cfg = lc.models[model].cfg
+    arch = dict((n, a) for n, a, _ in CLUSTER_MODELS)[model]
+    params = unflatten_params(cfg, lc.nodes[0].gpu_shard(model).flat)
+    rng = np.random.default_rng(seed + 70)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                                ).cuda() for shape in ((2, 64), (3, 37))]
+    refs = [forward(cfg, params, {"tokens": t}, kernel_impl="plain")
+            ["logits"] for t in batches]
+    scales = [float(r.abs().max()) for r in refs]
+    last = torch.tensor([63, 20], device="cuda")
+    lc.scale(model, 3)
+    reqs = [(list(map(int, rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(64, 257))))), 24)
+            for _ in range(4)]
+    points, errs, want = [], [], {}
+
+    def held(logits, b, what, rows=None):
+        ref = refs[b] if rows is None else refs[b][
+            torch.arange(len(rows), device="cuda"), rows]
+        err = float((logits - ref).abs().max())
+        errs.append(err)
+        if not err <= CLUSTER_FP32_TOL * scales[b]:
+            raise AssertionError(f"cluster-fp32 {arch} {what} batch {b}: "
+                                 f"max |d logit| {err:.3g} > "
+                                 f"{CLUSTER_FP32_TOL} x {scales[b]:.3g}")
+
+    def compare():
+        for b, t in enumerate(batches):
+            r = lc.forward(model, t)
+            held(r["logits"], b, f"{r['mode']} step {len(points)}")
+        points.append(r["mode"])
+
+    def serve():
+        while True:
+            compare()
+            pipes = lc.serving[model].live_pipes()
+            if not want and pipes:
+                held(pipes[0].engine.forward_fn(batches[0], last), 0,
+                     f"serving pipeline last={last.tolist()}", last)
+                points.append("serving pipeline at last=")
+                for p, n in reqs:
+                    want[lc.submit(model, p, n)] = (model, n)
+                # the pipeline prefills one request a tick
+                for _ in reqs:
+                    lc.tick()
+            if not lc.step():
+                break
+            lc.tick()
+        lc.drain_serving()
+        compare()
+        for nd in lc.complete_nodes(model):
+            for b, t in enumerate(batches):
+                held(lc._forward_local(model, nd, t), b, f"node {nd} local")
+            points.append(f"node {nd} local")
+    # qwen's path keeps the name it had before stablelm joined the phase
+    path = "cluster-fp32" + ("" if model == "qwen" else f"-{model}")
+    _, wall, counts = drive(path, serve)
+    expect_cluster_decode(lc, path, counts)
+    n_nodes = len(lc.complete_nodes(model))
+    if "pipeline" not in points or not want or n_nodes != 4 or \
+            points[-n_nodes - 1] != "local":
+        raise AssertionError(f"cluster-fp32 {arch}: points {points}")
+    adopted, reprefilled = check_cluster_served(lc, want,
+                                                f"cluster-fp32 {arch}")
+    if reprefilled or adopted[model] < 2:
+        raise AssertionError(f"cluster-fp32 {arch}: adopted {adopted}, "
+                             f"re-prefilled {reprefilled}")
+    out = lc.results(model)
+    checked = skipped = 0
+    for rid, (prompt, _) in zip(want, reqs):
+        c, k = teacher_forced(cfg, params, prompt, out[rid],
+                              f"cluster-fp32 {arch} request {rid}", "paged")
+        checked, skipped = checked + c, skipped + k
+    if checked < (checked + skipped) // 2:
+        raise AssertionError(f"only {checked} tokens cleared the margin")
+    log(f"[fp32] 10c cluster {arch} fp32, 4 nodes x "
+        f"{lc.models[model].nbytes / 1e9:.3f} GB: {len(points)} points "
+        f"({', '.join(points)}), max |d logit| "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + " against the plain fp32 forward (largest |logit| "
+        + ", ".join(f"{s:.3g}" for s in scales)
+        + f", tolerance {CLUSTER_FP32_TOL} of it); {len(want)} requests "
+        f"(adopted {adopted[model]}), {checked} tokens equal the plain "
+        f"teacher-forced argmax, {skipped} skipped (top-2 margin <= "
+        f"{MARGIN}); {wall:.3f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{counts}")
+    del lc, params, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1854,6 +2317,13 @@ def main() -> int:
     serve_ewl(args.seed)
     check_ewl_fp32(args.seed)
     log(f"[phase] 9 (qwen2.5-3b execute-while-load) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_cluster_live(args.seed)
+    serve_cluster_autoscale(args.seed)
+    for model, _, _ in CLUSTER_MODELS:
+        check_cluster_fp32(args.seed, model)
+    log(f"[phase] 10 (live cluster: qwen2.5-3b + stablelm-1.6b) in "
         f"{time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"

@@ -218,7 +218,7 @@ def kway_schedule(n_nodes: int, n_blocks: int, k: int) -> Schedule:
 # Single source of truth for the inter-node link calibration: the serving
 # layer's HardwareProfile (serving/tiers.py) imports these as its defaults,
 # so recalibrating the link means editing exactly these two constants.
-DEFAULT_LINK_BW = 50e9          # bytes/s (ICI link; paper: 400Gb/s IB)
+DEFAULT_LINK_BW = 50e9          # bytes/s (paper: 400 Gb/s InfiniBand)
 DEFAULT_STEP_OVERHEAD = 0.004   # s, per-step processing (paper Fig 18)
 
 

@@ -1,17 +1,26 @@
 """Serving entry point of the PyTorch port: bring up a model on the GPU
 and serve a static batch through ``InferenceEngine`` (the default, as
-``repro.launch.serve.run_engine`` does) or replay a mixed-length burst
-through the continuous-batching engine (``--continuous``).
+``repro.launch.serve.run_engine`` does), replay a mixed-length burst
+through the continuous-batching engine (``--continuous``), scale two
+models on the live tiered cluster while it serves (``--live``), replay a
+trace under the autoscaler from zero replicas (``--autoscale``), or
+compare the scaling policies on the calibrated simulator (``--sim``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
       --d-model 64 --device cpu --requests 6 --prompt 16 --tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --live --nodes 7
+  PYTHONPATH=src python -m repro_torch.launch.serve --autoscale --nodes 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --sim --nodes 8 \\
+      --rps 20 --duration 2
 
 ``--arch`` is served at its full published width unless ``--d-model``
 asks for a reduced variant (which also cuts the vocabulary to 2048, as
-the JAX driver does).  Weights are random, from ``--seed``.
+``repro.launch.serve`` does).  Weights are random, from ``--seed``.  ``--sim``
+runs no model: it prices the scaling policies on the simulated clock of
+the paper's testbed profile (``serving.tiers.H800``).
 """
 from __future__ import annotations
 
@@ -24,7 +33,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import init_params, make_batch
-from repro_torch.serving import ContinuousBatchingEngine, InferenceEngine
+from repro_torch.serving import (POLICIES, Autoscaler, AutoscalerConfig,
+                                 ContinuousBatchingEngine, HardwareProfile,
+                                 InferenceEngine, LiveCluster, Request,
+                                 Simulator, constant_stress)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -44,11 +56,12 @@ def device_name(device: torch.device) -> str:
     return "cpu"
 
 
-def _model(args, device):
-    cfg = get_config(args.arch)
+def _model(args, device, arch=None, seed=None):
+    cfg = get_config(arch or args.arch)
     if args.d_model is not None:
         cfg = reduced(cfg, d_model=args.d_model, vocab=2048)
-    return cfg, init_params(cfg, seed=args.seed, dtype=DTYPES[args.dtype],
+    seed = args.seed if seed is None else seed
+    return cfg, init_params(cfg, seed=seed, dtype=DTYPES[args.dtype],
                             device=device)
 
 
@@ -110,11 +123,124 @@ def run_continuous(args) -> None:
           f"{s['decode_tokens'] / max(s['decode_ticks'], 1):.2f}")
 
 
+def run_live(args) -> None:
+    """Two models on one tiered cluster (multi-model runtime): model A
+    (``--arch``) hot on node 0, model B (stablelm-1.6b) host-warm on the
+    last node; both scale concurrently while a mixed request burst is
+    absorbed through the scheduler-driven serving instances (pipelines
+    during load, local replicas after the mode switch)."""
+    device = resolve_device(args.device)
+    max_len = args.prompt + args.tokens + 8
+    lc = LiveCluster(n_nodes=args.nodes, n_slots=args.slots,
+                     max_len=max_len, device=device)
+    cfgs = {}
+    for m, arch, seed, kw in [("A", args.arch, args.seed,
+                               {"hot_nodes": [0]}),
+                              ("B", "stablelm-1.6b", args.seed + 1,
+                               {"warm_nodes": [args.nodes - 1]})]:
+        cfg, params = _model(args, device, arch, seed)
+        lc.register(m, cfg, params, n_blocks=4, **kw)
+        cfgs[m] = cfg
+        del params
+    half = max(1, (args.nodes - 2) // 2)
+    reports = {"A": lc.scale("A", half), "B": lc.scale("B", half)}
+    for m, rep in reports.items():
+        print(f"scale {m} ({cfgs[m].arch_id}): {rep.source_tier}-tier "
+              f"source {rep.sources} -> {len(rep.dests)} dests; first new "
+              f"capacity at {rep.t_first_serve * 1e3:.1f} ms, complete at "
+              f"{rep.t_complete * 1e3:.1f} ms (simulated clock)")
+    rng = np.random.default_rng(args.seed + 2)
+    for i in range(args.requests):
+        m = "A" if i % 2 == 0 else "B"
+        prompt = list(map(int, rng.integers(0, cfgs[m].vocab_size,
+                                            size=max(4, args.prompt // 4))))
+        lc.submit(m, prompt, args.tokens)
+    _sync(device)
+    t0 = time.perf_counter()
+    while lc.step():           # serve while the multicasts are in flight
+        lc.tick()
+    lc.drain_serving()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    out = {m: lc.results(m) for m in ("A", "B")}
+    total = sum(len(v) for res in out.values() for v in res.values())
+    adopted = sum(e.stats["adopted"] for m in ("A", "B")
+                  for e in lc.serving[m].locals_.values())
+    print(f"{args.requests} requests across 2 models -> {total} tokens in "
+          f"{dt:.3f}s wall on {device_name(device)}; {adopted} handed off "
+          f"mid-generation; replicas: A={sorted(lc.serving['A'].locals_)} "
+          f"B={sorted(lc.serving['B'].locals_)}")
+
+
+def run_autoscale(args) -> None:
+    """Closed loop on the live runtime: the model starts host-warm with
+    ZERO replicas; a bursty trace arrives and the autoscaler does the
+    rest — scale-up via k-way multicast from the warm copy, serving
+    through EWL pipelines and mode-switched replicas, then keep-alive
+    scale-down back to the host tier when the burst passes."""
+    device = resolve_device(args.device)
+    cfg, params = _model(args, device)
+    max_len = max(4, args.prompt // 4) + args.tokens + 8
+    lc = LiveCluster(n_nodes=args.nodes, n_slots=args.slots,
+                     max_len=max_len, device=device)
+    lc.register("m", cfg, params, n_blocks=4, warm_nodes=[0])
+    del params
+    rng = np.random.default_rng(args.seed + 2)
+    trace = [Request(i, "m", 0.005 + 0.002 * i,
+                     max(4, args.prompt // 4), args.tokens)
+             for i in range(args.requests)]
+    asc = Autoscaler(AutoscalerConfig(cooldown_up=0.05, cooldown_down=0.02,
+                                      keepalive=0.15, min_replicas=0,
+                                      max_k=2))
+    _sync(device)
+    t0 = time.perf_counter()
+    log = lc.replay(trace, autoscaler=asc, tick_seconds=0.002,
+                    tail_seconds=0.5,
+                    prompt_fn=lambda r: list(map(int, rng.integers(
+                        0, cfg.vocab_size, size=r.prompt_len))))
+    _sync(device)
+    dt = time.perf_counter() - t0
+    s = log.summary()
+    print(f"closed-loop replay: {int(s['n_finished'])}/{len(trace)} "
+          f"requests in {dt:.3f}s wall on {device_name(device)}; TTFT "
+          f"p50={s['ttft_p50'] * 1e3:.1f}ms p99={s['ttft_p99'] * 1e3:.1f}ms "
+          f"and gpu_seconds={s['gpu_seconds']:.3f} (simulated clock, "
+          f"{lc.hw.name} profile)")
+    for e in log.scale_events:
+        print(f"  t={e.t * 1e3:7.1f}ms (simulated clock) {e.kind:6s} "
+              f"{e.detail}")
+    print(f"replicas now: {sorted(lc.serving['m'].locals_)} (host-warm "
+          f"fallback on {lc._host_payload_nodes('m')})")
+
+
+def run_sim(args) -> None:
+    """λScale against the baselines on the calibrated discrete-event
+    simulator (no model runs; every time is on the simulated clock)."""
+    hw = HardwareProfile()
+    reqs = constant_stress(args.rps, args.duration, model=args.model,
+                           out_tokens=16, seed=0)
+    print(f"simulating {len(reqs)} requests on {args.nodes} nodes "
+          f"({hw.name} profile, simulated clock)")
+    for name in ("lambdascale", "serverlessllm", "faasnet", "nccl", "ideal"):
+        res = Simulator(POLICIES[name](hw), args.nodes, hw).run(reqs)
+        print(f"  {name:14s} p50={res.ttft_percentile(50):6.3f}s "
+              f"p90={res.ttft_percentile(90):6.3f}s "
+              f"gpu_time={res.gpu_seconds:8.1f}s (simulated clock)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching engine on a mixed-length trace "
                          "(default: one static batch through InferenceEngine)")
+    ap.add_argument("--live", action="store_true",
+                    help="two-model tiered live cluster (scale + serve)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="closed-loop trace replay: the autoscaler drives "
+                         "scale-up/EWL/scale-down on the live cluster")
+    ap.add_argument("--sim", action="store_true",
+                    help="scaling policies on the calibrated simulator "
+                         "(no model runs)")
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--d-model", type=int, default=None,
                     help="reduce the model to this width (default: full)")
@@ -126,8 +252,19 @@ def main() -> None:
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nodes", type=int, default=12)
+    ap.add_argument("--model", default="llama2-13b",
+                    help="the simulated model of --sim")
+    ap.add_argument("--rps", type=float, default=50.0)
+    ap.add_argument("--duration", type=float, default=5.0)
     args = ap.parse_args()
-    if args.continuous:
+    if args.sim:
+        run_sim(args)
+    elif args.autoscale:
+        run_autoscale(args)
+    elif args.live:
+        run_live(args)
+    elif args.continuous:
         run_continuous(args)
     else:
         run_engine(args)

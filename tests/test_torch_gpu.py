@@ -1019,3 +1019,107 @@ def test_pipelined_forward_across_cards(cuda):
     ref = forward(cfg, params, {"tokens": tokens})["logits"]
     assert out.device.index == n - 1
     torch.testing.assert_close(out.to(cuda), ref, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------ live cluster
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _two_model_cluster(dev, models):
+    """The reduced two-model live cluster of ``tests/test_torch_cluster.py``
+    on ``dev``: model A hot on node 0 scales to three new nodes, model B
+    from a host-warm copy to three more, while 12 requests are served
+    through the pipelines and the local replicas."""
+    from repro_torch.serving import LiveCluster
+    lc = LiveCluster(n_nodes=8, n_slots=2, max_len=48, device=dev)
+    lc.register("A", models["A"][0], _tree_to(models["A"][1], dev),
+                n_blocks=4, hot_nodes=[0])
+    lc.register("B", models["B"][0], _tree_to(models["B"][1], dev),
+                n_blocks=4, warm_nodes=[7])
+    lc.scale("A", 3)
+    lc.scale("B", 3)
+    rng = np.random.default_rng(SEED)
+    for i in range(12):
+        m = "AB"[i % 2]
+        lc.submit(m, list(map(int, rng.integers(
+            0, models[m][0].vocab_size, int(rng.choice([5, 8]))))), 6)
+    while lc.step():
+        lc.tick()
+    lc.drain_serving()
+    return lc
+
+
+def _reduced_models():
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+    out = {}
+    for m, arch, seed in (("A", "qwen2.5-3b", 0), ("B", "stablelm-1.6b", 1)):
+        cfg = reduced(get_config(arch), d_model=64, n_layers=4)
+        out[m] = (cfg, init_params(cfg, seed=seed, device="cpu"))
+    return out
+
+
+@pytest.mark.gpu
+def test_live_cluster_on_card_equals_cpu(cuda):
+    """The reduced two-model live cluster in fp32 on the card (the
+    kernels) and on the CPU (their plain versions): the same registry
+    bytes, every node's wire buffers equal to them, the same tokens."""
+    models = _reduced_models()
+    gpu, cpu = _two_model_cluster(cuda, models), _two_model_cluster(
+        "cpu", models)
+    for m in "AB":
+        dep = gpu.models[m]
+        np.testing.assert_array_equal(dep.registry, cpu.models[m].registry)
+        for nd in gpu.complete_nodes(m):
+            shard = gpu.nodes[nd].gpu_shard(m)
+            for b, buf in shard.buffers.items():
+                np.testing.assert_array_equal(buf, dep.registry[b])
+            assert all(t.device.type == cuda.type
+                       for t in shard.flat.values())
+        assert gpu.results(m) == cpu.results(m)
+    assert gpu.handoff_log == cpu.handoff_log
+    assert sum(e.stats["adopted"] for m in "AB"
+               for e in gpu.serving[m].locals_.values()) >= 1
+
+
+@pytest.mark.gpu
+def test_live_cluster_defaults_to_the_card(cuda):
+    """No ``device``: the cluster runs on the GPU, every node's tensors
+    and every engine's cache there."""
+    from repro_torch.serving import LiveCluster
+    cfg, params = _reduced_models()["A"]
+    lc = LiveCluster(n_nodes=3, n_slots=2, max_len=48)
+    lc.register("m", cfg, params, n_blocks=2, hot_nodes=[0])
+    lc.scale("m", 2)
+    lc.run_to_completion()
+    for nd in lc.complete_nodes("m"):
+        assert all(t.is_cuda for t in lc.nodes[nd].gpu_shard("m").flat
+                   .values())
+    assert lc.complete_nodes("m") == [0, 1, 2]
+    assert all(e.device.type == "cuda"
+               for e in lc.serving["m"].locals_.values())
+
+
+@pytest.mark.gpu
+def test_live_cluster_scale_down_frees_device_memory(cuda):
+    """``scale_down`` releases a replica's device bytes: its unpacked rows
+    and its engine's pool are freed, no reference survives."""
+    from repro_torch.serving import LiveCluster
+    cfg, params = _reduced_models()["B"]
+    lc = LiveCluster(n_nodes=2, n_slots=2, max_len=48, device=cuda)
+    lc.register("m", cfg, params, n_blocks=2, hot_nodes=[0])
+    lc.scale("m", 1)
+    lc.run_to_completion()
+    lc.submit("m", [1, 2, 3, 4, 5], 4)
+    lc.drain_serving()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    lc.scale_down("m", [1])
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() >= lc.models["m"].nbytes
+    assert lc.complete_nodes("m") == [0]
