@@ -97,7 +97,26 @@ Phases (any failure exits non-zero, with no result line):
      equal), and in bf16 the wall time of a decode tick of 8 live slots,
      eager (functional and in place) against a replay; each engine's
      capture time and graph-pool bytes are printed (also on the serving
-     lines of phases 3, 5, 7 and 10a).
+     lines of phases 3, 5, 7 and 10a);
+ 12. the remaining families, random weights from the seed, one model on
+     the card at a time: (a) full-width qwen2-moe-a2.7b (24 layers, 60
+     experts top-4 + a shared expert) in bf16 through the paged engine
+     (prefix sharing) and the striped engine on one 12-request trace and
+     ``InferenceEngine`` at 4 x 512, a replayed decode tick of 8 live
+     slots beside its weight-read bound (the static dispatch reads every
+     expert) and the grouped prefill's ms a prompt token; (b)
+     llama4-maverick at full width, depth cut to 2 layers (dense, then 128
+     experts), paged on 8 requests; (c) full pixtral-12b, ``InferenceEngine``
+     on 4 x (64 patch embeddings + 256 text tokens) and paged on a text
+     trace; (d) whisper-large-v3, ``InferenceEngine`` on 4 x (1500 frames +
+     64 tokens), 32 non-causal and 32 causal flash launches a prefill;
+     launch counts asserted on every path; (e) fp32: qwen2-moe at depth
+     4 (paged, striped, static; its decode graphs replayed against the
+     eager step within GRAPH_TOL), pixtral at depth 2 (static with
+     patches, paged, striped) and whisper (static with frames), every
+     token held to the plain teacher-forced argmax; (f) the live cluster
+     on qwen2-moe at depth 4 in fp32, as 10c, with 8 requests (path
+     ``cluster-fp32-moe``).
 Each path is driven with every launch count set to 0 just before it and
 read just after; a graph replay adds the launches its capture recorded.
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
@@ -125,8 +144,11 @@ SSM_MLSTM, SSM_SLSTM = 42, 6      # xlstm-1.3b's 48 layers
 PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
 # further timed shapes of a kernel, beside its main one: flash's fp32
 # kernel, dh 256, the ring decode at qwen2.5-3b's shape, a short prompt
-# and the scan at a short prompt, the static batch and in bf16
-EXTRA = ("fp32", "dh256", "qwen", "S128", "S256", "B8", "bf16")
+# and the scan at a short prompt, the static batch and in bf16; phase
+# 12's families: qwen2-moe, pixtral and llama4 heads, whisper's encoder
+# (flash, non-causal) and decoder (ring decode)
+EXTRA = ("fp32", "dh256", "qwen", "S128", "S256", "B8", "bf16", "moe",
+         "pixtral", "llama4", "whisper_enc", "whisper")
 # the scan's timed shapes (B, S, d, dtype): one RG-LRU layer's prefill of a
 # 2048-token prompt, a typical paged prompt, InferenceEngine's static batch
 SCAN_TIMED = {"main": (1, 2048, 2560, "float32"),
@@ -322,9 +344,11 @@ def check_paged_step(errs, dtype_name):
     """The fused step at qwen2.5-3b's paged shape (8 slots, 16/2 heads,
     dh 128, a 2048-token pool), recurrentgemma-2b's (8 slots, 10/1
     heads: g = 10 query heads per CTA, more than its 8 warps; dh 256; a
-    3072-token pool, window 2048 on and off) and stablelm-1.6b's in the
+    3072-token pool, window 2048 on and off), stablelm-1.6b's in the
     live cluster (8 slots, 32/32 heads: group 1; dh 64; a 1024-token
-    pool, no window), over edge lens, FREE rows and a NaN trash page;
+    pool, no window), qwen2-moe's (16/16, dh 128), pixtral's (32/8, dh
+    128) and llama4's (40/8, dh 128, a 10240-token pool, window 8192 on
+    and off), over edge lens, FREE rows and a NaN trash page;
     then one and two slots with long lens at every shape (the split
     walk's few-slot ticks).  The pools must be byte-equal outside the
     trash page."""
@@ -345,7 +369,16 @@ def check_paged_step(errs, dtype_name):
                [2500, 9, 0, 47, 2049, 0, 17, 3072], 2048, 2048),
               ("stablelm", 32, 32, 64, 1024, [0, 1, ps - 1, ps, ps + 1, 1024,
                                               700, 333],
-               [300, 9, 0, 47, 1024, 0, 17, 1000], None, None)]
+               [300, 9, 0, 47, 1024, 0, 17, 1000], None, None),
+              ("qwen2-moe", 16, 16, 128, 2048, [0, 1, ps - 1, ps, ps + 1,
+                                                2048, 700, 1500],
+               [300, 9, 0, 47, 1024, 0, 17, 2048], None, None),
+              ("pixtral", 32, 8, 128, 2048, [0, 1, ps - 1, ps, ps + 1, 2048,
+                                             700, 1500],
+               [300, 9, 0, 47, 1024, 0, 17, 2048], None, None),
+              ("llama4", 40, 8, 128, 10240, [0, 1, ps + 1, 8191, 8192, 8193,
+                                             10240, 5000],
+               [9000, 9, 0, 47, 8193, 0, 17, 10240], 8192, 8192)]
     for label, H, KVH, dh, max_len, edge, free_lens, w_edge, w_rand in shapes:
         MP = max_len // ps
         full = MP * ps
@@ -431,30 +464,40 @@ def check_flash(errs, dtype_name):
     """qwen2.5-3b's prefill shape (H=16, KVH=2, dh=128),
     recurrentgemma-2b's (H=10, KVH=1, dh=256, window 2048),
     stablelm-1.6b's in the live cluster (H=32, KVH=32, dh=64, no window,
-    prompts up to 512), and head dims the bf16 kernel zero-pads to its 64
-    and 256 buckets (8, 24, 192)."""
+    prompts up to 512), head dims the bf16 kernel zero-pads to its 64
+    and 256 buckets (8, 24, 192), and phase 12's: qwen2-moe (16/16, dh
+    128), pixtral (32/8), llama4 (40/8, window 8192), whisper (20/20, dh
+    64) non-causal over its 1500 encoder frames and causal in its
+    decoder."""
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [(16, 2, 128, S, w) for S in (1, 17, 128, 1000, 2048)
+    cases = [(16, 2, 128, S, w, True) for S in (1, 17, 128, 1000, 2048)
              for w in (None, 256)]
-    cases += [(10, 1, 256, S, w) for S in (1, 17, 2048, 2600)
+    cases += [(10, 1, 256, S, w, True) for S in (1, 17, 2048, 2600)
               for w in (None, 2048)]
-    cases += [(32, 32, 64, S, None) for S in (1, 17, 64, 300, 512)]
-    cases += [(10, 1, dh, S, w) for dh in (8, 24, 192) for S in (5, 100, 1000)
-              for w in (None, 40)]
-    for H, KVH, dh, S, window in cases:
+    cases += [(32, 32, 64, S, None, True) for S in (1, 17, 64, 300, 512)]
+    cases += [(10, 1, dh, S, w, True) for dh in (8, 24, 192)
+              for S in (5, 100, 1000) for w in (None, 40)]
+    # qwen2-moe, pixtral (64 patches + text), llama4 (window 8192)
+    cases += [(16, 16, 128, S, None, True) for S in (17, 1024)]
+    cases += [(32, 8, 128, S, None, True) for S in (17, 320)]
+    cases += [(40, 8, 128, S, 8192, True) for S in (17, 1000)]
+    # whisper: the encoder over 1500 frames (non-causal), the decoder
+    cases += [(20, 20, 64, S, None, False) for S in (17, 1500)]
+    cases += [(20, 20, 64, S, None, True) for S in (64, 448)]
+    for H, KVH, dh, S, window, causal in cases:
         f = lambda h: torch.randn((1, h, S, dh), generator=gen,
                                   device="cuda").to(dtype)
         q, k, v = f(H), f(KVH), f(KVH)
-        out = flash_attention(q, k, v, causal=True, window=window)
-        ref = flash_attention_ref(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         errs.check("flash_attention", dtype_name, out, ref,
                    f"flash_attention {dtype_name} H={H} KVH={KVH} dh={dh} "
-                   f"S={S} window={window}")
+                   f"S={S} window={window} causal={causal}")
 
 
 def check_paged_attention(errs, dtype_name):
@@ -515,7 +558,8 @@ def check_decode(errs, dtype_name):
     """Ring decode at recurrentgemma-2b's serving shape (8 slots, 10/1
     heads, dh 256, W = window = 2048; rings filled to 1, W-1, W and
     wrapped past W), qwen2.5-3b's striped shape (16/2 heads, dh 128, a
-    linear 2048 cache) and the fuzz buckets."""
+    linear 2048 cache), whisper's (4 slots, 20/20 heads, dh 64, linear
+    caches of 128 and 448) and the fuzz buckets."""
     import torch
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
@@ -528,6 +572,10 @@ def check_decode(errs, dtype_name):
              for w in (2048, None)]
     cases.append(("qwen", 8, 16, 2, W, 128,
                   [1, 17, 500, 1024, W - 1, W, 300, 64], None))
+    # whisper's decoder self-attention: 20/20 heads, dh 64, the static
+    # engine's cache of prompt + new tokens, and a 448-token one
+    cases.append(("whisper", 4, 20, 20, 128, 64, [1, 64, 100, 128], None))
+    cases.append(("whisper", 4, 20, 20, 448, 64, [1, 200, 447, 448], None))
     for bi, (B, H, KVH, Wb, dh, window) in enumerate(DECODE_BUCKETS):
         for i in range(3):
             fills = torch.randint(1, 2 * Wb + 1, (B,), generator=rng)
@@ -691,11 +739,19 @@ def _time_mlstm(S):
 
 def time_paged_step():
     """Kernel, plain and bound at a decode tick of the qwen2.5-3b serving
-    phase's shape: 8 slots mid-generation, bf16; and (``"dh256"``) at
-    recurrentgemma-2b's paged shape."""
+    phase's shape: 8 slots mid-generation, bf16; and at recurrentgemma-2b's
+    (``"dh256"``), qwen2-moe's (``"moe"``, 16/16 heads), pixtral's
+    (``"pixtral"``, 32/8) and llama4's (``"llama4"``, 40/8, window 8192,
+    slots 4096..10240 tokens long) paged shapes."""
     out = _time_paged_step(16, 2, 128, 128, None, (64, 1152), seed=3)
     out["dh256"] = _time_paged_step(10, 1, 256, 192, 2048, (64, 3000),
                                     seed=19)
+    out["moe"] = _time_paged_step(16, 16, 128, 128, None, (64, 1152),
+                                  seed=41)
+    out["pixtral"] = _time_paged_step(32, 8, 128, 128, None, (64, 1152),
+                                      seed=43)
+    out["llama4"] = _time_paged_step(40, 8, 128, 640, 8192, (4096, 10240),
+                                     seed=45)
     return out
 
 
@@ -748,32 +804,38 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
 def time_flash():
     """Kernel, plain, library call and bound at the longest prompt the
     serving phase prefills (S=1024), bf16 (the tensor-core kernel); the
-    same in fp32 (``"fp32"``: the CUDA-core kernel) and bf16 at dh 256
-    (``"dh256"``)."""
-    out = _time_flash_qwen("bfloat16")
-    out["fp32"] = _time_flash_qwen("float32")
+    same in fp32 (``"fp32"``: the CUDA-core kernel), bf16 at dh 256
+    (``"dh256"``), at qwen2-moe's heads (``"moe"``: 16/16, S=1024) and
+    whisper's encoder (``"whisper_enc"``: 20/20, dh 64, 1500 frames,
+    non-causal)."""
+    out = _time_flash(16, 2, 1024, 128, "bfloat16")
+    out["fp32"] = _time_flash(16, 2, 1024, 128, "float32")
     out["dh256"] = time_flash_dh256()
+    out["moe"] = _time_flash(16, 16, 1024, 128, "bfloat16")
+    out["whisper_enc"] = _time_flash(20, 20, 1500, 64, "bfloat16",
+                                     causal=False)
     return out
 
 
-def _time_flash_qwen(dtype_name):
+def _time_flash(H, KVH, S, dh, dtype_name, causal=True):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    B, H, KVH, S, dh = 1, 16, 2, 1024, 128
+    B = 1
     gen = torch.Generator(device="cuda").manual_seed(5)
     f = lambda h: torch.randn((B, h, S, dh), generator=gen,
                               device="cuda").to(getattr(torch, dtype_name))
     q, k, v = f(H), f(KVH), f(KVH)
-    ms = graph_ms(lambda: flash_attention(q, k, v))
-    enq = time_ms(lambda: flash_attention(q, k, v))
-    plain = time_ms(lambda: flash_attention_ref(q, k, v), iters=10)
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal))
+    enq = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                    iters=10)
     kr = k.repeat_interleave(H // KVH, dim=1)
     vr = v.repeat_interleave(H // KVH, dim=1)
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                          is_causal=True))
-    pairs = S * (S + 1) // 2
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=causal))
+    pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * pairs * dh * H * B
     esz = q.element_size()
     n_bytes = esz * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
@@ -781,7 +843,8 @@ def _time_flash_qwen(dtype_name):
     kind = "bf16" if dtype_name == "bfloat16" else "fp32"
     return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
-            "shape": f"B=1 H=16 KVH=2 S=1024 dh=128 causal {kind} "
+            "shape": f"B=1 H={H} KVH={KVH} S={S} dh={dh} "
+                     f"{'causal' if causal else 'non-causal'} {kind} "
                      f"(library: SDPA, GQA heads expanded outside the "
                      f"timing)"}
 
@@ -855,25 +918,28 @@ def time_decode():
     8 slots with full wrapped rings of W = window = 2048, 10/1 heads,
     dh 256, bf16; and (``"qwen"``) qwen2.5-3b's striped shape: 8 slots of
     a 2048-token cache mid-generation (the paged step's timed lens), 16/2
-    heads, dh 128, no window."""
+    heads, dh 128, no window; and (``"whisper"``) whisper's static engine
+    at its phase-12 shape: 4 slots of a 128-token cache, 20/20 heads, dh
+    64."""
     import torch
     W = 2048
     out = _time_decode(10, 1, 256, [W + 37 * b for b in range(8)], W, 17)
     lens = torch.randint(64, 1152, (8,),
                          generator=torch.Generator().manual_seed(3))
     out["qwen"] = _time_decode(16, 2, 128, lens.tolist(), None, 23)
+    out["whisper"] = _time_decode(20, 20, 64, [100, 110, 120, 127], None,
+                                  29, B=4, W=128)
     return out
 
 
-def _time_decode(H, KVH, dh, fills, window, seed):
-    """B = 8 slots, W = 2048, bf16; eight K/V copies cycled past the 50 MB
-    L2.  The library yardstick is SDPA over the validity mask with the KV
-    heads expanded outside the timing."""
+def _time_decode(H, KVH, dh, fills, window, seed, B=8, W=2048):
+    """B slots (8), a ring of W (2048) slots, bf16; eight K/V copies
+    cycled past the 50 MB L2.  The library yardstick is SDPA over the
+    validity mask with the KV heads expanded outside the timing."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention
     from repro_torch.kernels.ref import decode_attention_ref
-    B, W = 8, 2048
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, spos, pos = _ring_inputs(gen, B, H, KVH, W, dh, fills,
                                       torch.bfloat16)
@@ -905,7 +971,7 @@ def _time_decode(H, KVH, dh, fills, window, seed):
     b_ms, by = bound_ms(n_bytes, 4 * n_valid * H * dh, "bfloat16")
     return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
-            "shape": f"B=8 H={H} KVH={KVH} W=2048 window {window} dh={dh} "
+            "shape": f"B={B} H={H} KVH={KVH} W={W} window {window} dh={dh} "
                      f"bf16, fills {fills} (library: SDPA with the boolean "
                      f"validity mask, KV heads expanded outside the "
                      f"timing)"}
@@ -1184,21 +1250,25 @@ def _leaves(tree):
 
 
 # ------------------------------------------------------------ phase 4
-def teacher_forced(cfg, params, prompt, gen, what: str, layout: str):
+def teacher_forced(cfg, params, prompt, gen, what: str, layout: str,
+                   extra=None):
     """Re-run one request teacher-forced through ``forward`` +
     ``decode_step`` with every kernel swapped for its plain version
-    (``kernel_impl="plain"``: attention and the RG-LRU scan), on the paged
-    or the striped cache; every engine token must equal the reference
+    (``kernel_impl="plain"``: attention, the RG-LRU scan, the mLSTM chunk
+    loop and the static MoE form with no drops), on the paged or the
+    striped cache; ``extra`` holds the request's batch-1 "patches" or
+    "frames" (striped only).  Every engine token must equal the reference
     argmax where the top-2 margin exceeds MARGIN.  Returns (checked,
     skipped)."""
     import torch
     from repro_torch.models import (cache_from_prefill, decode_step,
-                                    forward, init_paged_cache,
+                                    forward, init_paged_cache, n_positions,
                                     paged_prefill_scatter, pages_for)
-    total = len(prompt) + len(gen)
     toks = torch.tensor([prompt], device="cuda")
-    o = forward(cfg, params, {"tokens": toks}, build_cache=True,
-                kernel_impl="plain", last_only=True)
+    batch = {"tokens": toks, **(extra or {})}
+    total = n_positions(cfg, batch) + len(gen)
+    o = forward(cfg, params, batch, build_cache=True, cache_len=total,
+                moe_cf=None, kernel_impl="plain", last_only=True)
     if layout == "paged":
         npg = pages_for(total, 16)
         cache = init_paged_cache(cfg, 1, page_size=16, n_pages=npg,
@@ -1208,7 +1278,8 @@ def teacher_forced(cfg, params, prompt, gen, what: str, layout: str):
         paged_prefill_scatter(cfg, cache, o["kv"], 0, cache["pages"][0],
                               len(prompt))
     else:
-        cache = cache_from_prefill(cfg, o["kv"], total, len(prompt))
+        cache = cache_from_prefill(cfg, o["kv"], total,
+                                   n_positions(cfg, batch))
     logits = o["logits"][0, -1]
     checked = skipped = 0
     for j, got in enumerate(gen):
@@ -1849,6 +1920,10 @@ def check_ewl_fp32(seed: int) -> None:
 # ------------------------------------------------------------ phase 10
 # (name, arch, weight seed offset): qwen hot on node 0, stablelm host-warm
 CLUSTER_MODELS = (("qwen", "qwen2.5-3b", 0), ("stablelm", "stablelm-1.6b", 1))
+# 12f: the live cluster on MoE, depth cut: four fp32 copies on one card
+# (at depth 6, 16.2 GB a copy, the fourth node's unpack ran out of memory)
+CLUSTER_MOE = ("moe", "qwen2-moe-a2.7b", 2)
+CLUSTER_DEPTH = {"moe": 4}
 CLUSTER_BLOCKS = 4
 # fp32 sub-phase: max |cluster logits - plain fp32 forward| over the
 # largest |plain logit|, at every multicast step in both modes
@@ -1929,14 +2004,17 @@ def register_cluster_models(lc, dtype, seed: int, placement):
     into CLUSTER_BLOCKS wire blocks; the weights are dropped afterwards
     (the registry and the node tiers hold the model).  Returns the
     seconds each registration took."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     took = {}
-    for name, arch, off in CLUSTER_MODELS:
+    for name, arch, off in CLUSTER_MODELS + (CLUSTER_MOE,):
         if name not in placement:
             continue
         cfg = get_config(arch)
+        if name in CLUSTER_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=CLUSTER_DEPTH[name])
         params = init_params(cfg, seed=seed + off, dtype=dtype,
                              device="cuda")
         torch.cuda.synchronize()
@@ -2161,19 +2239,20 @@ def serve_cluster_autoscale(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def check_cluster_fp32(seed: int, model: str) -> None:
+def check_cluster_fp32(seed: int, model: str, n_requests: int = 4) -> None:
     """10c: ``model`` (qwen2.5-3b; stablelm-1.6b: MHA at dh 64, LayerNorm
-    with partial rotary) in fp32, hot on node 0 of 4, scaled by 3.  At
+    with partial rotary; 12f: qwen2-moe at depth 4 with 8 requests) in
+    fp32, hot on node 0 of 4, scaled by 3.  At
     every multicast step ``forward`` on two token batches (local on the
     source, the pipeline while it is the best option, then local) is held
     to the plain fp32 forward on the same weights; once a serving pipeline
     is live, its own ``forward_fn`` at ``last=`` rows is held to those
-    rows; after the scale every node's local forward is held to it.  4
-    requests submitted once the pipeline is live are prefilled in it,
-    handed off at the mode switch (at least 2 adopted, none prefilled
-    again) and held to the plain teacher-forced argmax.  (On 3 nodes the
-    plan's only pipeline is ready at the step its members complete: no
-    pipeline mode.)"""
+    rows; after the scale every node's local forward is held to it.
+    ``n_requests`` requests submitted once the pipeline is live are
+    prefilled in it, handed off at the mode switch (at least 2 adopted,
+    none prefilled again) and held to the plain teacher-forced argmax.
+    (On 3 nodes the plan's only pipeline is ready at the step its members
+    complete: no pipeline mode.)"""
     import gc
     import numpy as np
     import torch
@@ -2188,19 +2267,19 @@ def check_cluster_fp32(seed: int, model: str) -> None:
     register_cluster_models(lc, torch.float32, seed,
                             {model: {"hot_nodes": [0]}})
     cfg = lc.models[model].cfg
-    arch = dict((n, a) for n, a, _ in CLUSTER_MODELS)[model]
+    arch = dict((n, a) for n, a, _ in CLUSTER_MODELS + (CLUSTER_MOE,))[model]
     params = unflatten_params(cfg, lc.nodes[0].gpu_shard(model).flat)
     rng = np.random.default_rng(seed + 70)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
                                 ).cuda() for shape in ((2, 64), (3, 37))]
-    refs = [forward(cfg, params, {"tokens": t}, kernel_impl="plain")
-            ["logits"] for t in batches]
+    refs = [forward(cfg, params, {"tokens": t}, kernel_impl="plain",
+                    moe_cf=None)["logits"] for t in batches]
     scales = [float(r.abs().max()) for r in refs]
     last = torch.tensor([63, 20], device="cuda")
     lc.scale(model, 3)
     reqs = [(list(map(int, rng.integers(0, cfg.vocab_size,
                                         int(rng.integers(64, 257))))), 24)
-            for _ in range(4)]
+            for _ in range(n_requests)]
     points, errs, want = [], [], {}
 
     def held(logits, b, what, rows=None):
@@ -2262,7 +2341,8 @@ def check_cluster_fp32(seed: int, model: str) -> None:
         checked, skipped = checked + c, skipped + k
     if checked < (checked + skipped) // 2:
         raise AssertionError(f"only {checked} tokens cleared the margin")
-    log(f"[fp32] 10c cluster {arch} fp32, 4 nodes x "
+    log(f"[fp32] {'12f' if model == 'moe' else '10c'} cluster {arch} "
+        f"({cfg.n_layers} layers) fp32, 4 nodes x "
         f"{lc.models[model].nbytes / 1e9:.3f} GB: {len(points)} points "
         f"({', '.join(points)}), max |d logit| "
         + ", ".join(f"{e:.3g}" for e in errs)
@@ -2396,6 +2476,351 @@ def check_compiled(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 12
+MOE_ARCH, LLAMA4_ARCH = "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"
+VLM_ARCH, ENCDEC_ARCH = "pixtral-12b", "whisper-large-v3"
+LLAMA4_LAYERS = 2      # 12b: one "attn:dense" + one "attn:moe" layer
+MOE_FP32_LAYERS = 4    # 12e
+VLM_FP32_LAYERS = 2    # 12e
+
+
+def family_trace(vocab: int, seed: int, n: int = 12, new=(32, 97)):
+    """``n`` requests, prompts 64..1024 tokens, ``new`` new tokens;
+    requests 0 and 1 share a 512-token prefix (page-aligned)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tok = lambda k: list(map(int, rng.integers(0, vocab, int(k))))
+    base = tok(512)
+    prompts = [base + tok(100), base + tok(37)]
+    prompts += [tok(k) for k in rng.integers(64, 1025, n - 2)]
+    return [(p, int(m)) for p, m in zip(prompts,
+                                        rng.integers(*new, len(prompts)))]
+
+
+def family_model(arch: str, dtype, seed: int, n_layers=None):
+    """(cfg, params, parameter count, bytes a decode tick reads: every
+    weight but the embedding table, whose rows a tick gathers)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = init_params(cfg, seed=seed, dtype=dtype, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    read = sum(t.numel() * t.element_size()
+               for k, v in params.items() if k != "embed"
+               for t in _leaves(v))
+    return cfg, params, n, read
+
+
+def serve_paged_family(cfg, params, trace, label: str):
+    """``trace`` through the paged engine (8 slots, 2048-token pool, page
+    16, prefix sharing): flash == layers x fresh prefills and decode-step
+    == layers x decode ticks; returns the engine."""
+    from repro_torch.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=2048,
+                                   page_size=16, prefix_sharing=True)
+    for i, (p, n) in enumerate(trace):
+        eng.submit(p, n, req_id=i)
+    out, wall, launches = drive(label, eng.run)
+    s = eng.stats
+    fresh = sum(1 for q in eng.sched.finished.values()
+                if q.shared_tokens == 0)
+    check_lengths(label, out, trace, cfg.vocab_size)
+    expect(label, launches,
+           {"paged_decode_step": cfg.n_layers * s["decode_ticks"],
+            "flash_attention": cfg.n_layers * fresh})
+    if s["shared_tokens"] <= 0 or fresh == len(trace):
+        raise AssertionError(f"{label}: no prompt shared a prefix")
+    gen_tok = sum(len(v) for v in out.values())
+    log(f"[serve] {label}: {len(trace)} requests, {gen_tok} tokens in "
+        f"{wall:.3f} s = {gen_tok / wall:.1f} tok/s (wall time incl. "
+        f"prefill); decode_ticks={s['decode_ticks']} prefills="
+        f"{s['prefills']} fresh={fresh} shared_tokens="
+        f"{s['shared_tokens']}; {graph_note(eng)}")
+    return eng
+
+
+def serve_striped_family(cfg, params, trace, label: str) -> None:
+    """``trace`` through the striped engine (``paged=False``): flash ==
+    layers x prefills, ring decode == layers x decode ticks."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=2048,
+                                   paged=False)
+    for i, (p, n) in enumerate(trace):
+        eng.submit(p, n, req_id=i)
+    out, wall, launches = drive(label, eng.run)
+    s = eng.stats
+    check_lengths(label, out, trace, cfg.vocab_size)
+    expect(label, launches,
+           {"flash_attention": cfg.n_layers * s["prefills"],
+            "decode_attention": cfg.n_layers * s["decode_ticks"]})
+    gen_tok = sum(len(v) for v in out.values())
+    log(f"[serve] {label}: {len(trace)} requests, {gen_tok} tokens in "
+        f"{wall:.3f} s = {gen_tok / wall:.1f} tok/s; decode_ticks="
+        f"{s['decode_ticks']} prefills={s['prefills']}; {graph_note(eng)}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def serve_static_family(cfg, params, batch, n_new: int, label: str,
+                        flash_per_prefill: int) -> None:
+    """``InferenceEngine.generate`` on ``batch``: ``flash_per_prefill``
+    flash launches (one a layer; whisper's encoder adds its own) and
+    ring decode == layers x (n_new - 1)."""
+    from repro_torch.serving import InferenceEngine
+    eng = InferenceEngine(cfg, params)
+    out, wall, counts = drive(label, lambda: eng.generate(batch, n_new))
+    B = batch["tokens"].shape[0]
+    if out.shape != (B, n_new) or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: output {tuple(out.shape)}")
+    expect(label, counts, {"flash_attention": flash_per_prefill,
+                           "decode_attention": cfg.n_layers * (n_new - 1)})
+    log(f"[serve] {label}: {B} x {n_new} new = {B * n_new} tokens in "
+        f"{wall:.3f} s = {B * n_new / wall:.1f} tok/s; launches {counts}")
+
+
+def tick_vs_bound(cfg, params, read: int, label: str, seed: int) -> None:
+    """A paged decode tick of 8 live slots (``compiled_engine``), eager
+    and replayed, beside the time the tick's weight bytes take at the
+    HBM rate."""
+    import torch
+    eng, first = compiled_engine(cfg, params, True, 2048, seed)
+    eager, inplace, replay = tick_ms(cfg, params, eng)
+    b_ms = read / HBM_BYTES_PER_S * 1e3
+    log(f"[tick] {label} bf16 paged: a decode tick of 8 live slots "
+        f"{eager:.3f} ms eager, {inplace:.3f} ms eager in place, "
+        f"{replay:.3f} ms a graph replay, weight-read bound {b_ms:.3f} ms "
+        f"({replay / b_ms:.2f}x); first tick + capture {first * 1e3:.1f} "
+        f"ms; {graph_note(eng)}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def serve_moe(seed: int) -> None:
+    """12a: full-width qwen2-moe-a2.7b in bf16: the paged engine (prefix
+    sharing) and the striped engine on one 12-request trace, the static
+    engine at 4 x 512; a replayed decode tick of 8 live slots beside its
+    weight-read bound (``tick_vs_bound``), and the grouped prefill's ms
+    per prompt token."""
+    import torch
+    from repro_torch.models import forward, make_batch
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, n, read = family_model(MOE_ARCH, torch.bfloat16, seed)
+    log(f"[moe] {MOE_ARCH} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} + shared "
+        f"{cfg.shared_expert_d_ff}, {n / 1e9:.3f}B params; a decode tick "
+        f"reads {read / 1e9:.3f} GB of weights (every expert: the static "
+        f"dispatch)")
+    trace = family_trace(cfg.vocab_size, seed + 80)
+    eng = serve_paged_family(cfg, params, trace, "qwen2-moe paged")
+    del eng
+    torch.cuda.empty_cache()
+    tick_vs_bound(cfg, params, read, "qwen2-moe", seed + 81)
+    toks = torch.randint(0, cfg.vocab_size, (1, 1024), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(seed))
+    run = lambda: forward(cfg, params, {"tokens": toks}, moe_cf=None,
+                          last_only=True)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    per_tok = (time.perf_counter() - t0) / 3 / 1024 * 1e3
+    log(f"[moe] grouped prefill of a 1024-token prompt: {per_tok:.4f} ms "
+        f"a prompt token ({per_tok * 1024:.1f} ms; one host read of the "
+        f"expert counts a layer)")
+    batch = make_batch(cfg, 4, 512, seed=seed + 82, device="cuda")
+    serve_static_family(cfg, params, batch, 32, "qwen2-moe static",
+                        cfg.n_layers)
+    serve_striped_family(cfg, params, trace, "qwen2-moe striped")
+    log(f"[moe] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_llama4(seed: int) -> None:
+    """12b: llama4-maverick at full width, depth cut to 2 layers (dense,
+    then 128-expert MoE; 400B parameters do not fit one card): the paged
+    engine on 8 requests, and ``tick_vs_bound``."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, n, read = family_model(LLAMA4_ARCH, torch.bfloat16, seed,
+                                        n_layers=LLAMA4_LAYERS)
+    log(f"[llama4] {LLAMA4_ARCH} at full width, {cfg.n_layers} layers "
+        f"{cfg.layer_pattern[:cfg.n_layers]}: {n / 1e9:.3f}B params, a "
+        f"decode tick reads {read / 1e9:.3f} GB")
+    trace = family_trace(cfg.vocab_size, seed + 83, n=8, new=(32, 65))
+    eng = serve_paged_family(cfg, params, trace, "llama4 paged")
+    del eng
+    torch.cuda.empty_cache()
+    tick_vs_bound(cfg, params, read, "llama4", seed + 87)
+    log(f"[llama4] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_vlm(seed: int) -> None:
+    """12c: full-width pixtral-12b in bf16: the static engine on 4 x (64
+    patch embeddings + 256 text tokens), then the paged engine on a
+    12-request text trace, and ``tick_vs_bound``."""
+    import torch
+    from repro_torch.models import make_batch
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, n, read = family_model(VLM_ARCH, torch.bfloat16, seed)
+    log(f"[vlm] {VLM_ARCH} full width: {cfg.n_layers} layers, "
+        f"{n / 1e9:.3f}B params, a decode tick reads {read / 1e9:.3f} GB")
+    batch = make_batch(cfg, 4, cfg.n_patches + 256, seed=seed + 84,
+                       device="cuda")
+    serve_static_family(cfg, params, batch, 32, "pixtral static",
+                        cfg.n_layers)
+    eng = serve_paged_family(cfg, params,
+                             family_trace(cfg.vocab_size, seed + 85),
+                             "pixtral paged")
+    del eng
+    torch.cuda.empty_cache()
+    tick_vs_bound(cfg, params, read, "pixtral", seed + 88)
+    log(f"[vlm] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_whisper(seed: int) -> None:
+    """12d: full whisper-large-v3 in bf16 (32 encoder + 32 decoder
+    layers): the static engine on 4 x (1500 random frames + 64 prompt
+    tokens), 64 new tokens; flash == 32 non-causal (encoder) + 32 causal
+    launches for the prefill."""
+    import torch
+    from repro_torch.models import make_batch
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, n, read = family_model(ENCDEC_ARCH, torch.bfloat16, seed)
+    log(f"[encdec] {ENCDEC_ARCH}: {cfg.n_enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, {n / 1e9:.3f}B params")
+    batch = make_batch(cfg, 4, 64, seed=seed + 86, device="cuda")
+    serve_static_family(cfg, params, batch, 64, "whisper static",
+                        cfg.n_enc_layers + cfg.n_layers)
+    log(f"[encdec] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _fp32_engines(cfg, params, trace, label: str, layouts=(True, False)):
+    """``trace`` through the paged and striped engines in fp32, every
+    token held to the plain teacher-forced argmax; returns (checked,
+    skipped)."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    checked = skipped = 0
+    for paged in layouts:
+        layout = "paged" if paged else "striped"
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=8, max_len=1024,
+                                       page_size=16, paged=paged)
+        for i, (p, n) in enumerate(trace):
+            eng.submit(p, n, req_id=i)
+        out = eng.run()
+        for i, (prompt, _) in enumerate(trace):
+            c, k = teacher_forced(cfg, params, prompt, out[i],
+                                  f"{label} {layout} request {i}", layout)
+            checked, skipped = checked + c, skipped + k
+        del eng
+        torch.cuda.empty_cache()
+    return checked, skipped
+
+
+def _fp32_static(cfg, params, batch, n_new: int, label: str, extra_key=None,
+                 cache_len=None):
+    """The static engine on ``batch`` in fp32, each row held to the plain
+    teacher-forced argmax (with its patches or frames)."""
+    from repro_torch.serving import InferenceEngine
+    out = InferenceEngine(cfg, params).generate(batch, n_new,
+                                                cache_len=cache_len)
+    checked = skipped = 0
+    for i in range(out.shape[0]):
+        extra = ({extra_key: batch[extra_key][i:i + 1]} if extra_key
+                 else None)
+        c, k = teacher_forced(cfg, params, batch["tokens"][i].tolist(),
+                              out[i].tolist(), f"{label} static row {i}",
+                              "striped", extra=extra)
+        checked, skipped = checked + c, skipped + k
+    return checked, skipped
+
+
+def check_families_fp32(seed: int) -> None:
+    """12e: qwen2-moe at full width and depth 4, pixtral at depth 2 (with
+    patches) and whisper at full depth (with frames), in fp32, through
+    each path the JAX package serves them on; every token held to the
+    plain teacher-forced argmax where the top-2 margin exceeds MARGIN,
+    and the MoE engines' graph replays held to the eager decode_step on
+    a clone within GRAPH_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.models import make_batch, n_positions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 90)
+    results = []
+    cfg, params, _, _ = family_model(MOE_ARCH, torch.float32, seed,
+                                     n_layers=MOE_FP32_LAYERS)
+    tok = lambda k: list(map(int, rng.integers(0, cfg.vocab_size, k)))
+    a = tok(300)
+    trace = [(a, 16), (a[:200] + tok(50), 16), (tok(150), 16)]
+    c, k = _fp32_engines(cfg, params, trace, "qwen2-moe")
+    c2, k2 = _fp32_static(cfg, params, make_batch(
+        cfg, 2, 128, seed=seed + 91, device="cuda"), 16, "qwen2-moe")
+    results.append(("qwen2-moe", c + c2, k + k2))
+    for paged in (True, False):
+        label = f"qwen2-moe fp32 {'paged' if paged else 'striped'}"
+        eng, first = compiled_engine(cfg, params, paged, 1024, seed + 92)
+        rel = graph_vs_eager(cfg, params, eng, 3)
+        if rel > GRAPH_TOL:
+            raise AssertionError(f"{label}: replay vs eager {rel:.3g} of "
+                                 f"the largest logit")
+        log(f"[compiled] {label}: 3 replays vs the eager step, max |diff| "
+            f"{rel:.3g} of the largest logit (tolerance {GRAPH_TOL}); "
+            f"first tick + capture {first * 1e3:.1f} ms; {graph_note(eng)}")
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, _, _ = family_model(VLM_ARCH, torch.float32, seed,
+                                     n_layers=VLM_FP32_LAYERS)
+    batch = make_batch(cfg, 2, cfg.n_patches + 96, seed=seed + 93,
+                       device="cuda")
+    c, k = _fp32_static(cfg, params, batch, 16, "pixtral", "patches",
+                        cache_len=n_positions(cfg, batch) + 16)
+    trace = [(tok(200), 16), (tok(90), 16)]
+    c2, k2 = _fp32_engines(cfg, params, trace, "pixtral")
+    results.append(("pixtral", c + c2, k + k2))
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, _, _ = family_model(ENCDEC_ARCH, torch.float32, seed)
+    c, k = _fp32_static(cfg, params, make_batch(
+        cfg, 2, 32, seed=seed + 94, device="cuda"), 24, "whisper", "frames")
+    results.append(("whisper", c, k))
+    del params
+    torch.cuda.empty_cache()
+    for label, c, k in results:
+        if c < (c + k) // 2:
+            raise AssertionError(f"{label}: only {c} tokens cleared the "
+                                 f"margin")
+    log("[fp32] 12e " + "; ".join(
+        f"{label}: {c} tokens equal the plain teacher-forced argmax, {k} "
+        f"skipped" for label, c, k in results)
+        + f" (top-2 margin <= {MARGIN}); qwen2-moe at depth "
+        f"{MOE_FP32_LAYERS} (paged, striped, static), pixtral at depth "
+        f"{VLM_FP32_LAYERS} (static with patches, paged, striped), whisper "
+        f"at full depth (static with frames)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2495,6 +2920,15 @@ def main() -> int:
     t0 = time.perf_counter()
     check_compiled(args.seed)
     log(f"[phase] 11 (compiled step) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_moe(args.seed)
+    serve_llama4(args.seed)
+    serve_vlm(args.seed)
+    serve_whisper(args.seed)
+    check_families_fp32(args.seed)
+    check_cluster_fp32(args.seed, "moe", n_requests=8)
+    log(f"[phase] 12 (qwen2-moe, llama4, pixtral, whisper) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"paged_decode_step": (csrc + "paged_decode_step.cu",

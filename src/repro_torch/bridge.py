@@ -7,6 +7,10 @@ unrolled remainder layers.  The port keeps one dict per layer, so layer
 ``rep * pattern_len + pi`` is ``trunk[pi][...][rep]`` and the remainder
 layers follow.  The caller hands the parameters over as nested dicts and
 tuples of numpy arrays (``jax.device_get``); this module imports no JAX.
+The encoder (encdec) is stacked the same way, under ``enc["layers"]``;
+MoE layers' ``moe`` dicts (router, expert banks (E, d_in, d_out), the
+shared expert), an encdec layer's ``norm_x``/``xattn``, the learned
+positions ``pos_embed`` and the VLM ``patch_proj`` come over as they are.
 Recurrent layers' ``rec``, ``mlstm`` and ``slstm`` dicts come over like
 the rest, except for the leaves that the JAX package makes fp32 in a bf16
 model, which keep their fp32 under any ``dtype``: the RG-LRU ``lam``, the
@@ -48,7 +52,7 @@ def _tree(x, fn, path=()):
 def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
                     dtype=None) -> Dict[str, Any]:
     """Port-layout parameters from numpy copies of the JAX package's
-    (dense, hybrid and ssm families).  ``dtype`` casts every leaf but
+    (every family).  ``dtype`` casts every leaf but
     those of ``_KEEP_DTYPE``; None keeps the source dtype.  ``device``
     defaults to the GPU."""
     dev = resolve_device(device)
@@ -56,16 +60,23 @@ def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
     def conv(a, path=()):
         return _tensor(a, dev, None if path[-2:] in _KEEP_DTYPE else dtype)
 
+    def unstack(stacked, n):
+        return [_tree(stacked, lambda a, path, r=r: conv(np.asarray(a)[r],
+                                                         path))
+                for r in range(n)]
+
     reps, plen = cfg.n_pattern_reps, cfg.pattern_len
-    layers = []
-    for rep in range(reps):
-        for pi in range(plen):
-            layers.append(_tree(jax_params["trunk"][pi],
-                                lambda a, path, r=rep: conv(np.asarray(a)[r],
-                                                            path)))
+    per_pos = [unstack(jax_params["trunk"][pi], reps) for pi in range(plen)]
+    layers = [per_pos[pi][rep] for rep in range(reps) for pi in range(plen)]
     layers += [_tree(lp, conv) for lp in jax_params["rem"]]
     out = {"embed": conv(jax_params["embed"]), "layers": layers,
            "final_norm": _tree(jax_params["final_norm"], conv)}
-    if "head" in jax_params:
-        out["head"] = conv(jax_params["head"])
+    for name in ("head", "pos_embed", "patch_proj"):
+        if name in jax_params:
+            out[name] = conv(jax_params[name])
+    if "enc" in jax_params:
+        enc = jax_params["enc"]
+        out["enc"] = {"pos": conv(enc["pos"]),
+                      "layers": unstack(enc["layers"], cfg.n_enc_layers),
+                      "final_norm": _tree(enc["final_norm"], conv)}
     return out

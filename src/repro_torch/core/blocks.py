@@ -1,8 +1,8 @@
 """Model block partitioning + tensor packing (λScale §5), in PyTorch.
 
-A *model block* is a contiguous range of transferable units (trunk
-layers, with the embedding absorbed into the first block and the
-head/final norm into the last).  ``pack_block`` consolidates every tensor
+A *model block* is a contiguous range of transferable units (encoder
+layers, trunk layers, with the embedding absorbed into the first block
+and the head/final norm into the last).  ``pack_block`` consolidates every tensor
 of a block into ONE contiguous byte buffer (the paper's "tensor packing":
 a block becomes a single multicast payload instead of per-tensor sends);
 ``unpack_block`` restores the tensors bit-exactly.
@@ -39,11 +39,22 @@ def _tree_items(prefix: str, tree) -> List[Tuple[str, torch.Tensor]]:
 
 
 def flatten_params(cfg: ModelConfig, params) -> Dict[str, torch.Tensor]:
-    """Flatten into a unit-major dict: embedding, head, layers."""
+    """Flatten into a unit-major dict: globals (embedding, learned
+    positions, patch projection, head, the encoder's positions and final
+    norm), encoder layers, trunk layers."""
     flat: Dict[str, torch.Tensor] = {"@embed/embed": params["embed"]}
+    for name in ("pos_embed", "patch_proj"):
+        if name in params:
+            flat[f"@embed/{name}"] = params[name]
     if "head" in params:
         flat["@head/head"] = params["head"]
     flat.update(_tree_items("@head/final_norm", params["final_norm"]))
+    if "enc" in params:
+        flat["@embed/enc_pos"] = params["enc"]["pos"]
+        flat.update(_tree_items("@head/enc_final_norm",
+                                params["enc"]["final_norm"]))
+        for i, lp in enumerate(params["enc"]["layers"]):
+            flat.update(_tree_items(f"@enclayer{i:04d}/", lp))
     for li, lp in enumerate(params["layers"]):
         flat.update(_tree_items(f"@layer{li:04d}/", lp))
     return flat
@@ -71,11 +82,21 @@ def unit_items(flat: Dict[str, torch.Tensor], prefix: str
 def unflatten_params(cfg: ModelConfig, flat: Dict[str, torch.Tensor]):
     """Inverse of flatten_params: the port's per-layer parameter dict."""
     params: Dict = {"embed": flat["@embed/embed"]}
+    for name in ("pos_embed", "patch_proj"):
+        if f"@embed/{name}" in flat:
+            params[name] = flat[f"@embed/{name}"]
     if "@head/head" in flat:
         params["head"] = flat["@head/head"]
     params["final_norm"] = build_tree(unit_items(flat, "@head/final_norm"))
     params["layers"] = [build_tree(unit_items(flat, f"@layer{li:04d}/"))
                         for li in range(cfg.n_layers)]
+    if "@embed/enc_pos" in flat:
+        params["enc"] = {
+            "pos": flat["@embed/enc_pos"],
+            "layers": [build_tree(unit_items(flat, f"@enclayer{i:04d}/"))
+                       for i in range(cfg.n_enc_layers)],
+            "final_norm": build_tree(unit_items(flat,
+                                                "@head/enc_final_norm"))}
     return params
 
 

@@ -20,7 +20,7 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import (cache_from_prefill, forward,
+from repro_torch.models import (cache_from_prefill, forward, n_positions,
                                 pack_single_cache)
 
 if TYPE_CHECKING:                                    # pragma: no cover
@@ -40,13 +40,15 @@ def recompute_cache(cfg: ModelConfig, params, batch: Dict, *,
                     cache_len: int, kernel_impl: str = "kernel"):
     """Rebuild the striped decode cache from prompt + generated tokens.
 
-    batch["tokens"]: (B, S_so_far) — everything processed so far.  Returns
-    a cache positioned to continue decoding at S_so_far, equal to having
-    decoded with a live cache all along (tested)."""
-    tokens = batch["tokens"]
-    out = forward(cfg, params, batch, build_cache=True,
-                  kernel_impl=kernel_impl, last_only=True)
-    return cache_from_prefill(cfg, out["kv"], cache_len, tokens.shape[1])
+    batch["tokens"]: (B, S_so_far) — everything processed so far, with
+    the batch's "patches" (vlm) or "frames" (encdec, the encoder is run
+    again).  Returns a cache positioned to continue decoding after the
+    last position (patches + tokens), equal to having decoded with a live
+    cache all along (tested).  MoE layers drop nothing (``moe_cf=None``)."""
+    out = forward(cfg, params, batch, build_cache=True, cache_len=cache_len,
+                  moe_cf=None, kernel_impl=kernel_impl, last_only=True)
+    return cache_from_prefill(cfg, out["kv"], cache_len,
+                              n_positions(cfg, batch))
 
 
 def handoff_requests(cfg: ModelConfig, params,

@@ -8,8 +8,10 @@ execution-pipeline stages (§4.3).  Stage i runs
 ``apply_layer_range(cfg, flat_i, x, lo_i, hi_i, positions)`` and hands the
 activation to the next stage.
 
-The counterpart of ``repro.core.partial_exec`` for the port's families
-(dense, hybrid, ssm); attention layers run the flash kernel on the card.
+The counterpart of ``repro.core.partial_exec``: decoder-only families
+(dense, moe, hybrid, ssm, vlm text); attention layers run the flash
+kernel on the card, and MoE layers run with no drops (``moe_cf=None``),
+as every serving path does.
 """
 from __future__ import annotations
 
@@ -24,9 +26,16 @@ from repro_torch.models import model as mm
 
 @torch.no_grad()
 def embed_from_flat(cfg: ModelConfig, flat: Dict[str, torch.Tensor],
-                    tokens):
-    """Requires the '@embed' unit. tokens: (B,S)."""
-    return mm._embed_tokens(cfg, {"embed": flat["@embed/embed"]}, tokens)
+                    tokens, positions=None):
+    """Requires the '@embed' unit. tokens: (B,S); ``positions`` (B,S)
+    default to 0..S-1 (they matter to learned positions only)."""
+    params = {name: flat[f"@embed/{name}"]
+              for name in ("embed", "pos_embed", "patch_proj")
+              if f"@embed/{name}" in flat}
+    if positions is None:
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    return mm._embed_tokens(cfg, params, tokens, positions)
 
 
 @torch.no_grad()
@@ -39,9 +48,9 @@ def apply_layer_range(cfg: ModelConfig, flat: Dict[str, torch.Tensor], x,
         sub = unit_items(flat, f"@layer{li:04d}/")
         if not sub:
             raise KeyError(f"layer {li} not resident")
-        mixer = cfg.layer_pattern[li % cfg.pattern_len].split(":")[0]
-        x, _ = mm._apply_layer_full(build_tree(sub), x, cfg, mixer,
-                                    positions, kernel_impl)
+        entry = cfg.layer_pattern[li % cfg.pattern_len]
+        x, _, _ = mm._apply_layer_full(build_tree(sub), x, cfg, entry,
+                                       positions, kernel_impl, moe_cf=None)
     return x
 
 

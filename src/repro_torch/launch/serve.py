@@ -10,7 +10,13 @@ simulator (``--sim``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
+      --prompt 320
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
+      --arch qwen2-moe-a2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
       --d-model 64 --device cpu --requests 6 --prompt 16 --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --live --nodes 7
@@ -23,7 +29,11 @@ simulator (``--sim``).
 
 ``--arch`` is served at its full published width unless ``--d-model``
 asks for a reduced variant (which also cuts the vocabulary to 2048, as
-``repro.launch.serve`` does); ``--coldstart`` runs the JAX demo's
+``repro.launch.serve`` does).  The static batch carries random patch
+embeddings (vlm: ``--prompt`` counts them, as ``make_batch`` does) or
+frame embeddings (encdec); ``--continuous`` serves text, and not the
+encoder-decoder family, which the JAX package serves through the static
+engine only.  ``--coldstart`` runs the JAX demo's
 6-layer model at ``--d-model`` (default 64).  Weights are random, from
 ``--seed``.  ``--sim``
 runs no model: it prices the scaling policies on the simulated clock of
@@ -67,10 +77,15 @@ def device_name(device: torch.device) -> str:
     return "cpu"
 
 
-def _model(args, device, arch=None, seed=None):
+def _config(args, arch=None):
     cfg = get_config(arch or args.arch)
     if args.d_model is not None:
         cfg = reduced(cfg, d_model=args.d_model, vocab=2048)
+    return cfg
+
+
+def _model(args, device, arch=None, seed=None):
+    cfg = _config(args, arch)
     seed = args.seed if seed is None else seed
     return cfg, init_params(cfg, seed=seed, dtype=DTYPES[args.dtype],
                             device=device)
@@ -84,6 +99,10 @@ def _sync(device) -> None:
 def run_engine(args) -> None:
     """Serve one static batch of ``--requests`` prompts of ``--prompt``
     tokens, ``--tokens`` new tokens each, through ``InferenceEngine``."""
+    n_patches = _config(args).n_patches
+    if args.prompt <= n_patches:
+        raise SystemExit(f"--prompt counts {args.arch}'s {n_patches} patch "
+                         f"embeddings: give more")
     device = resolve_device(args.device)
     cfg, params = _model(args, device)
     eng = InferenceEngine(cfg, params, max_len=args.prompt + args.tokens)
@@ -106,6 +125,9 @@ def run_continuous(args) -> None:
     every request arrives at once (the burst), slots refill mid-decode."""
     if args.requests < 1:
         raise SystemExit("--continuous needs --requests >= 1")
+    if _config(args).family == "encdec":
+        raise SystemExit("the encoder-decoder family is served by the "
+                         "static engine only (drop --continuous)")
     device = resolve_device(args.device)
     cfg, params = _model(args, device)
     trace = mixed_trace(args.requests, args.prompt, args.tokens,

@@ -6,7 +6,7 @@ from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, PackedKV,
 from repro_torch.models.model import (cache_from_prefill, decode_step,
                                       decode_step_inplace, forward,
                                       init_cache, init_paged_cache,
-                                      init_params, make_batch,
+                                      init_params, make_batch, n_positions,
                                       pack_single_cache, paged_adopt_scatter,
                                       paged_copy_page, paged_pack,
                                       paged_prefill_scatter,
@@ -21,4 +21,4 @@ __all__ = ["init_params", "forward", "decode_step", "decode_step_inplace",
            "supports_prefix_sharing", "init_cache", "cache_from_prefill",
            "cache_scatter", "cache_gather", "make_batch", "PackedKV",
            "payload_nbytes", "paged_pack", "paged_adopt_scatter",
-           "pack_single_cache"]
+           "pack_single_cache", "n_positions"]

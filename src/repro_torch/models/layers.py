@@ -1,6 +1,6 @@
-"""Shared layers of the decoder: norms, RoPE, attention (flash prefill,
-striped ring decode, fused paged decode, paged suffix prefill), the
-striped KV caches and the FFNs.
+"""Shared layers of the model: norms, RoPE, attention (flash prefill,
+causal or not, plain cross-attention, striped ring decode, fused paged
+decode, paged suffix prefill), the striped KV caches and the FFNs.
 
 The PyTorch counterpart of ``repro.models.layers``.  Parameters are plain
 dicts of tensors; functions take and return tensors in the JAX package's
@@ -9,13 +9,13 @@ layouts.  Plain matrix products stay ``torch.matmul``.
 ``kernel_impl`` is the port's one switch between every hand-written
 kernel and its plain version, taken by the functions here, by
 ``recurrent.apply_rec``, by ``model.forward``/``decode_step`` and by the
-engines.  ``"kernel"`` (the default) sends causal prefill attention to the
-flash kernel, the striped decode to the ring decode kernel, the paged
-decode to the fused paged kernel and the RG-LRU prefill to the scan
-kernel (each of which takes its plain version on a CPU tensor);
-``"plain"`` computes the same with plain tensor ops whatever the device
-(masked softmax over the ring or the gathered pages, the sequential
-scan), used as an independent check of the kernel path.
+engines.  ``"kernel"`` (the default) sends prefill attention to the flash
+kernel (non-causal for the encoder), the striped decode to the ring
+decode kernel, the paged decode to the fused paged kernel and the RG-LRU
+prefill to the scan kernel (each of which takes its plain version on a
+CPU tensor); ``"plain"`` computes the same with plain tensor ops whatever
+the device (masked softmax over the ring or the gathered pages, the
+sequential scan), used as an independent check of the kernel path.
 """
 from __future__ import annotations
 
@@ -167,24 +167,43 @@ def _sdpa(q, k, v, mask, cfg):
     return o.reshape(B, Sq, H, dh)
 
 
-def full_attention(p, x, cfg, positions, *, rope=True,
+def _cross_attention(p, x, cfg, k, v):
+    """x (B,S,d) attends over every key of k/v (B,Skv,kv,dh) (Sq ≠ Skv:
+    plain ops, as in the JAX package; no position, no RoPE)."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
+    return _out_proj(p, _sdpa(q, k, v, mask, cfg), cfg)
+
+
+def full_attention(p, x, cfg, positions, *, causal=True, rope=True,
                    window: Optional[int] = None,
-                   kernel_impl: str = "kernel"):
-    """Causal self-attention over a whole sequence whose positions are
-    0..S-1 (prompt prefill), through the flash kernel.  Returns
-    (out, (k, v)) with k/v (B,S,kv,dh) for the cache.
-    The JAX package's non-causal and ``kv_override`` paths serve the
-    encoder-decoder family only and are not ported."""
+                   kv_override=None, kernel_impl: str = "kernel"):
+    """Self-attention over a whole sequence whose positions are 0..S-1
+    (prompt prefill, the encoder), through the flash kernel: causal (with
+    an optional window) or, with ``causal=False``, every key of the
+    sequence.  ``kv_override=(k, v)`` (B,Skv,kv,dh) is cross-attention:
+    the queries attend over those keys, none masked, in plain ops (the
+    flash kernel takes one length for queries and keys).  Returns
+    (out, (k, v)) with k/v (B,S,kv,dh) for the cache."""
     _check_impl(kernel_impl)
+    if kv_override is not None:
+        return _cross_attention(p, x, cfg, *kv_override), kv_override
     q, k, v = _qkv(p, x, cfg, positions, rope)
+    if not causal:
+        window = None               # the JAX package windows causal only
     if kernel_impl == "kernel":
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window)
+                            v.transpose(1, 2), causal=causal, window=window)
         o = o.transpose(1, 2)
     else:
-        mask = positions[:, :, None] >= positions[:, None, :]
+        rel = positions[:, :, None] - positions[:, None, :]
+        mask = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
         if window is not None:
-            mask &= positions[:, :, None] - positions[:, None, :] < window
+            mask &= rel < window
         o = _sdpa(q, k, v, mask, cfg)
     return _out_proj(p, o, cfg), (k, v)
 
@@ -228,7 +247,7 @@ def kv_cache_from_prefill(cfg, k, v, positions, max_len, *, window=None):
 
 
 def decode_attention(p, x, cache, cfg, positions, *, rope=True,
-                     window: Optional[int] = None,
+                     window: Optional[int] = None, cross_kv=None,
                      kernel_impl: str = "kernel"):
     """Single-token decode against the striped ring cache of one layer.
 
@@ -236,10 +255,13 @@ def decode_attention(p, x, cache, cfg, positions, *, rope=True,
     of ring width W.  The new token's K/V and position are written at ring
     slot ``positions % W`` first (plain indexing, in place), then the
     token attends over every slot whose stored position is valid,
-    through the ring decode kernel.  The JAX package's ``cross_kv`` path
-    serves the encoder-decoder family only and is not ported.  Returns
+    through the ring decode kernel.  ``cross_kv=(k, v)`` (B,Skv,kv,dh) is
+    cross-attention instead (``cache`` unused): the token attends over
+    every key, in plain ops, as in the JAX package.  Returns
     (out (B,1,d), cache)."""
     _check_impl(kernel_impl)
+    if cross_kv is not None:
+        return _cross_attention(p, x, cfg, *cross_kv), cache
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, x, cfg, positions[:, None], rope)
     W = cache["k"].shape[1]

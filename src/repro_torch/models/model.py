@@ -1,15 +1,22 @@
-"""Decoder model (dense, hybrid, ssm): init / forward / decode, in PyTorch.
+"""Model builder: init / forward / decode for all six families, in
+PyTorch.
 
-The counterpart of ``repro.models.model`` for ``family="dense"``,
-``family="hybrid"`` (RG-LRU + local attention, RecurrentGemma) and
-``family="ssm"`` (mLSTM + sLSTM blocks, xLSTM); other families raise
-``NotImplementedError``.  Parameters are a plain dict:
-``{"embed", "layers": [per-layer dict, ...], "final_norm"}`` plus
-``"head"`` when embeddings are not tied; a layer holds ``"attn"``,
-``"rec"``, ``"mlstm"`` or ``"slstm"`` by its pattern entry, and
-``"norm2"``/``"ffn"`` when its ffn is ``dense`` (xLSTM blocks own their
-projections: ffn ``none``).  The JAX package stacks the trunk for
-``lax.scan``; here a Python loop runs over ``layers`` in order
+The counterpart of ``repro.models.model``: ``family="dense"``, ``"moe"``
+(a ``moe`` ffn in some or all layers: routed experts plus a shared one),
+``"vlm"`` (patch embeddings, from a stubbed vision tower, projected and
+placed before the text), ``"encdec"`` (an encoder over stubbed frame
+embeddings, and decoder layers that add cross-attention; learned
+absolute positions), ``"hybrid"`` (RG-LRU + local attention,
+RecurrentGemma) and ``"ssm"`` (mLSTM + sLSTM blocks, xLSTM).  Parameters
+are a plain dict: ``{"embed", "layers": [per-layer dict, ...],
+"final_norm"}`` plus ``"head"`` when embeddings are not tied,
+``"pos_embed"`` (learned positions), ``"patch_proj"`` (vlm) and ``"enc"``
+(``{"pos", "layers", "final_norm"}``, encdec).  A layer holds ``"attn"``,
+``"rec"``, ``"mlstm"`` or ``"slstm"`` by its pattern entry,
+``"norm_x"``/``"xattn"`` in an encdec attention layer, and
+``"norm2"`` with ``"ffn"`` or ``"moe"`` by its ffn (xLSTM blocks own their
+projections: ffn ``none``).  The JAX package stacks the trunk and the
+encoder for ``lax.scan``; here Python loops run over the layer lists
 (``repro_torch.bridge`` unstacks JAX parameters into this layout).
 
 Two decode-cache layouts, both ``{"layers": [per-layer entry, ...],
@@ -18,25 +25,36 @@ Two decode-cache layouts, both ``{"layers": [per-layer entry, ...],
 ``{"c","n","h","m"}`` sLSTM) slot-indexed in either:
 - striped (``init_cache``): each attention layer holds a ring
   ``{"k","v": (n_slots, W, kv, dh), "pos": (n_slots, W)}`` of width
-  W = min(window, max_len) (``max_len`` for global layers);
-- paged (``init_paged_cache``): each attention layer holds one K and V
-  page pool (n_pages + 1, page_size, kv, dh) with the trash page at
-  n_pages, and the top level the shared (n_slots, max_pages) int32 page
-  table ``"pages"``.
+  W = min(window, max_len) (``max_len`` for global layers); an encdec
+  layer holds ``{"self": ring, "xk", "xv": (n_slots, enc_seq, kv, dh)}``,
+  the fixed cross-attention K/V;
+- paged (``init_paged_cache``, not encdec): each attention layer holds
+  one K and V page pool (n_pages + 1, page_size, kv, dh) with the trash
+  page at n_pages, and the top level the shared (n_slots, max_pages)
+  int32 page table ``"pages"``.
 Every leaf keeps the slot on axis 0 (the pools have no slot axis).
 Attention caches are updated in place; ``decode_step_inplace`` updates
 every leaf in place.
 
+A ``moe`` ffn has three forms (``models.moe``): ``forward`` with a
+capacity factor (the JAX default 1.25, which drops tokens) runs the
+static JAX layout; every serving caller passes ``moe_cf=None`` (no
+drops), and then prefill runs the grouped form (``kernel_impl="plain"``:
+the static one, the reference) while decode always runs the static one,
+which a CUDA graph can hold.
+
 API:
   init_params(cfg, seed, dtype, device)             -> params
-  forward(cfg, params, batch, build_cache=...)      -> {"logits", "kv"?}
+  forward(cfg, params, batch, build_cache=..., cache_len=..., moe_cf=...)
+        -> {"logits", "aux", "kv"?}
   decode_step(cfg, params, cache, tokens, positions) -> (logits, cache)
   decode_step_inplace(cfg, params, cache, tokens)   -> logits (in place)
   init_cache(cfg, n_slots, max_len, ...)            -> zeroed striped cache
   cache_from_prefill(cfg, kv, max_len, n_tokens)    -> striped cache
   init_paged_cache(cfg, n_slots, ...)               -> zeroed paged cache
   paged_pack / paged_adopt_scatter / pack_single_cache -> the PackedKV wire
-  make_batch(cfg, batch, seq_len, seed, device)     -> {"tokens"}
+  make_batch(cfg, batch, seq_len, seed, device)     -> {"tokens", ...}
+  n_positions(cfg, batch)                           -> prefill positions
 """
 from __future__ import annotations
 
@@ -49,38 +67,38 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models import xlstm as X
 from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, PackedKV,
                                           paged_geometry, pages_for)
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "hybrid", "ssm")
 ATTN_MIXERS = ("attn", "attn_full")
 STATE_MIXERS = ("rec", "mlstm", "slstm")       # slot-indexed state, no K/V
 _INIT = {"rec": R.init_rec, "mlstm": X.init_mlstm, "slstm": X.init_slstm}
 _INIT_STATE = {"rec": R.init_rec_state, "mlstm": X.init_mlstm_state,
                "slstm": X.init_slstm_state}
 
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the PyTorch port covers families {FAMILIES} so far, not "
-            f"{cfg.family!r} ({cfg.arch_id})")
-    for entry in cfg.layer_pattern:
-        mixer, ffn = entry.split(":")
-        if mixer not in ATTN_MIXERS + STATE_MIXERS or \
-                ffn not in ("dense", "none"):
-            raise NotImplementedError(f"layer entry {entry!r} is not ported")
+# Beyond this cache length, "global" (attn_full) layers of a config with a
+# window fall back to the window, so a 524k-token decode stays bounded
+LONG_CONTEXT_THRESHOLD = 100_000
+POS_TABLE = 4096  # learned-position table size (whisper)
 
 
-def _mixer_window(cfg: ModelConfig, mixer: str) -> Optional[int]:
-    """Effective attention window for masking: ``attn_full`` layers are
-    global, ``attn`` layers use the config's window (None = global).  The
-    JAX package's long-context fallback (windowing ``attn_full`` past
-    100k-token caches) is not ported."""
-    return None if mixer == "attn_full" else cfg.window
+def _mixer_window(cfg: ModelConfig, mixer: str,
+                  max_len: Optional[int] = None) -> Optional[int]:
+    """Effective attention window: ``attn`` layers use the config's
+    window (None = global); ``attn_full`` layers are global, except past
+    ``LONG_CONTEXT_THRESHOLD`` cache positions in a config with a window
+    (the prefill mask and the striped ring width ask with ``max_len``;
+    decode masks ask without it, as the ring then holds the window)."""
+    if mixer == "attn_full":
+        if (max_len is not None and max_len > LONG_CONTEXT_THRESHOLD
+                and cfg.window is not None):
+            return cfg.window
+        return None
+    return cfg.window
 
 
 def _entries(cfg: ModelConfig) -> List[str]:
@@ -93,43 +111,82 @@ def _mixers(cfg: ModelConfig) -> List[str]:
 
 
 # ===================================================================== init
+def _init_layer(cfg: ModelConfig, entry: str, gen, dtype, dev) -> Params:
+    mixer, ffn = entry.split(":")
+    lp = {"norm1": L.init_norm(cfg, dtype, dev)}
+    if mixer in STATE_MIXERS:
+        lp[mixer] = _INIT[mixer](cfg, gen, dtype, dev)
+    elif mixer in ATTN_MIXERS:
+        lp["attn"] = L.init_attention(cfg, gen, dtype, dev)
+        if cfg.family == "encdec":
+            lp["norm_x"] = L.init_norm(cfg, dtype, dev)
+            lp["xattn"] = L.init_attention(cfg, gen, dtype, dev)
+    else:
+        raise ValueError(f"unknown mixer {mixer}")
+    if ffn == "dense":
+        lp["norm2"] = L.init_norm(cfg, dtype, dev)
+        lp["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
+    elif ffn == "moe":
+        lp["norm2"] = L.init_norm(cfg, dtype, dev)
+        lp["moe"] = M.init_moe(cfg, gen, dtype, dev)
+    return lp
+
+
+def _normal(gen, shape, scale, dtype, dev):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+    return (w * scale).to(dtype)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                 device=None) -> Params:
     """Random weights with the JAX package's distributions (normal
-    embeddings ×0.02, normal projections ×1/sqrt(d_in), unit norms, zero
+    embeddings, learned positions and encoder positions ×0.02, normal
+    projections and expert matrices ×1/sqrt(d_in), unit norms, zero
     biases, RG-LRU ``lam`` and the xLSTM gates and recurrence in fp32),
     drawn from a ``torch.Generator`` seeded with ``seed`` on the target
     device (default: the GPU; pass ``device="cpu"`` for the CPU)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype, dev)}
-    layers = []
-    for entry in _entries(cfg):
-        mixer, ffn = entry.split(":")
-        lp = {"norm1": L.init_norm(cfg, dtype, dev)}
-        if mixer in STATE_MIXERS:
-            lp[mixer] = _INIT[mixer](cfg, gen, dtype, dev)
-        else:
-            lp["attn"] = L.init_attention(cfg, gen, dtype, dev)
-        if ffn == "dense":
-            lp["norm2"] = L.init_norm(cfg, dtype, dev)
-            lp["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
-        layers.append(lp)
-    p["layers"] = layers
+    if cfg.rope_pct == 0.0:
+        p["pos_embed"] = _normal(gen, (POS_TABLE, cfg.d_model), 0.02, dtype,
+                                 dev)
+    if cfg.n_patches:
+        p["patch_proj"] = L.dense_init(gen, cfg.d_model, cfg.d_model, dtype,
+                                       dev)
+    p["layers"] = [_init_layer(cfg, entry, gen, dtype, dev)
+                   for entry in _entries(cfg)]
     p["final_norm"] = L.init_norm(cfg, dtype, dev)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, dev)
+    if cfg.family == "encdec":
+        p["enc"] = {
+            "pos": _normal(gen, (cfg.enc_seq, cfg.d_model), 0.02, dtype, dev),
+            "layers": [{"norm1": L.init_norm(cfg, dtype, dev),
+                        "attn": L.init_attention(cfg, gen, dtype, dev),
+                        "norm2": L.init_norm(cfg, dtype, dev),
+                        "ffn": L.init_ffn(cfg, gen, dtype, dev)}
+                       for _ in range(cfg.n_enc_layers)],
+            "final_norm": L.init_norm(cfg, dtype, dev)}
     return p
 
 
 # ================================================================== embed
-def _embed_tokens(cfg: ModelConfig, params: Params, tokens):
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens, positions,
+                  patches=None):
+    """Token embeddings (B,S) -> (B,S,d), with the projected ``patches``
+    (B,P,d) placed before the text and learned positions added where the
+    model has them (indices clamped to the table)."""
     x = params["embed"][tokens]
     if cfg.family == "hybrid":          # gemma-style embedding scale
         # JAX multiplies by the Python float cast to the activation dtype
         x = x * L.const(math.sqrt(cfg.d_model), x.dtype, x.device)
+    if patches is not None:
+        pe = patches.to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([pe, x], dim=1)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][positions.clamp(max=POS_TABLE - 1)]
     return x
 
 
@@ -140,18 +197,65 @@ def _unembed(cfg: ModelConfig, params: Params, x):
     return x @ params["head"]
 
 
-def _ffn_block(p: Params, x, cfg: ModelConfig):
-    if "ffn" not in p:                  # ffn "none": the block owns its MLP
-        return x
-    return x + L.apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg), cfg)
+def _ffn_block(p: Params, x, cfg: ModelConfig, *, moe_cf=None,
+               grouped: bool = False, need_aux: bool = False):
+    """The ffn block and its residual: (x, aux) (aux None unless a
+    ``moe`` ffn was asked for it)."""
+    if "ffn" in p:
+        return x + L.apply_ffn(p["ffn"], L.apply_norm(p["norm2"], x, cfg),
+                               cfg), None
+    if "moe" in p:
+        mo, aux = M.apply_moe(p["moe"], L.apply_norm(p["norm2"], x, cfg),
+                              cfg, capacity_factor=moe_cf, grouped=grouped,
+                              need_aux=need_aux)
+        return x + mo, aux
+    return x, None                      # ffn "none": the block owns its MLP
+
+
+# ================================================================= encoder
+def _encode(cfg: ModelConfig, enc: Params, frames, kernel_impl: str):
+    """frames: (B, enc_seq, d) stubbed front-end embeddings -> encoder
+    output.  Non-causal attention (the flash kernel with ``causal=False``)
+    and a dense ffn per layer.  The frames are cast to the model's dtype
+    first (the JAX package adds fp32 frames to the positions and, in a
+    bf16 model, runs the encoder's activations in fp32; the same in an
+    fp32 model)."""
+    x = frames.to(enc["pos"].dtype) + enc["pos"][None]
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for lp in enc["layers"]:
+        h = L.apply_norm(lp["norm1"], x, cfg)
+        a, _ = L.full_attention(lp["attn"], h, cfg, positions, causal=False,
+                                rope=False, kernel_impl=kernel_impl)
+        x = x + a
+        x = x + L.apply_ffn(lp["ffn"], L.apply_norm(lp["norm2"], x, cfg),
+                            cfg)
+    return L.apply_norm(enc["final_norm"], x, cfg)
 
 
 # ============================================================ layer (full)
-def _apply_layer_full(lp: Params, x, cfg: ModelConfig, mixer: str,
-                      positions, kernel_impl: str):
+def _cross_kv(p: Params, enc_out, cfg: ModelConfig):
+    """Cross-attention K/V (B, enc_seq, kv, dh) of the encoder output."""
+    B, Se, _ = enc_out.shape
+    xk, xv = enc_out @ p["wk"], enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        xk, xv = xk + p["bk"], xv + p["bv"]
+    return (xk.reshape(B, Se, cfg.n_kv_heads, cfg.d_head),
+            xv.reshape(B, Se, cfg.n_kv_heads, cfg.d_head))
+
+
+def _apply_layer_full(lp: Params, x, cfg: ModelConfig, entry: str,
+                      positions, kernel_impl: str = "kernel", *,
+                      enc_out=None, cache_len: Optional[int] = None,
+                      moe_cf=None):
     """One layer over a whole sequence whose positions are 0..S-1: the
-    mixer, its residual and the ffn block.  Returns (x, state): the
-    attention (k, v) (B,S,kv,dh) or the recurrent layer's final state."""
+    mixer, its residual (and cross-attention in an encdec layer) and the
+    ffn block.  Returns (x, state, aux): state is the attention (k, v)
+    (B,S,kv,dh) (encdec: ``{"self": (k, v), "xk", "xv"}``) or the
+    recurrent layer's final state; aux is None unless the ffn is ``moe``.
+    ``cache_len`` picks ``attn_full``'s window past the long-context
+    threshold."""
+    mixer = entry.split(":")[0]
     h = L.apply_norm(lp["norm1"], x, cfg)
     if mixer == "rec":
         a, state = R.apply_rec(lp["rec"], h, cfg, kernel_impl=kernel_impl)
@@ -163,36 +267,70 @@ def _apply_layer_full(lp: Params, x, cfg: ModelConfig, mixer: str,
     else:
         a, state = L.full_attention(
             lp["attn"], h, cfg, positions, rope=cfg.rope_pct > 0.0,
-            window=_mixer_window(cfg, mixer), kernel_impl=kernel_impl)
-    return _ffn_block(lp, x + a, cfg), state
+            window=_mixer_window(cfg, mixer, cache_len),
+            kernel_impl=kernel_impl)
+    x = x + a
+    if cfg.family == "encdec" and mixer in ATTN_MIXERS:
+        xk, xv = _cross_kv(lp["xattn"], enc_out, cfg)
+        ca, _ = L.full_attention(lp["xattn"], L.apply_norm(lp["norm_x"], x,
+                                                           cfg),
+                                 cfg, positions, rope=False,
+                                 kv_override=(xk, xv),
+                                 kernel_impl=kernel_impl)
+        x = x + ca
+        state = {"self": state, "xk": xk, "xv": xv}
+    x, aux = _ffn_block(lp, x, cfg, moe_cf=moe_cf, need_aux=True,
+                        grouped=moe_cf is None and kernel_impl == "kernel")
+    return x, state, aux
 
 
 # ================================================================= forward
+def n_positions(cfg: ModelConfig, batch: Dict[str, Any]) -> int:
+    """A prefill batch's position count: its patches (vlm) and tokens."""
+    n = batch["tokens"].shape[1]
+    if cfg.n_patches and batch.get("patches") is not None:
+        n += batch["patches"].shape[1]
+    return n
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            build_cache: bool = False, kernel_impl: str = "kernel",
+            build_cache: bool = False, cache_len: Optional[int] = None,
+            moe_cf=1.25, kernel_impl: str = "kernel",
             last_only: bool = False) -> Dict[str, Any]:
-    """Prefill forward.  batch: {"tokens": (B, S)}; positions are 0..S-1.
-    Returns {"logits": (B,S,V)} ((B,1,V) for the last position alone with
+    """Train / prefill forward.  batch: {"tokens": (B, S_text)} plus
+    "patches" (B, n_patches, d) (vlm: placed before the text) or
+    "frames" (B, enc_seq, d) (encdec: the encoder's input); positions are
+    0..S-1 over S = patches + text.  ``moe_cf`` is the MoE capacity
+    factor (the JAX default 1.25 drops tokens; serving passes None);
+    ``cache_len`` (default S) is the decode cache's length, which picks
+    ``attn_full``'s long-context window.
+    Returns {"logits": (B,S,V), "aux": the MoE load-balance loss (fp32,
+    0 without MoE)} ((B,1,V) logits for the last position alone with
     ``last_only``: the engines read no other row, and at a 256k vocabulary
     the full tensor is gigabytes) plus, with ``build_cache``, "kv": per
-    layer either the attention (k, v) of shape (B,S,kv,dh) or the
-    recurrent layer's final state dict.  ``kernel_impl``: see
+    layer the ``_apply_layer_full`` state.  ``kernel_impl``: see
     ``models.layers``."""
-    _check_family(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S = tokens.shape[0], n_positions(cfg, batch)
+    patches = batch.get("patches") if cfg.n_patches else None
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, positions, patches)
+    enc_out = (_encode(cfg, params["enc"], batch["frames"], kernel_impl)
+               if cfg.family == "encdec" else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv: List[Any] = []
-    for lp, mixer in zip(params["layers"], _mixers(cfg)):
-        x, state = _apply_layer_full(lp, x, cfg, mixer, positions,
-                                     kernel_impl)
+    for lp, entry in zip(params["layers"], _entries(cfg)):
+        x, state, a = _apply_layer_full(
+            lp, x, cfg, entry, positions, kernel_impl, enc_out=enc_out,
+            cache_len=cache_len or S, moe_cf=moe_cf)
+        if a is not None:
+            aux = aux + a
         if build_cache:
             kv.append(state)
     if last_only:
         x = x[:, -1:]
-    out: Dict[str, Any] = {"logits": _unembed(cfg, params, x)}
+    out: Dict[str, Any] = {"logits": _unembed(cfg, params, x), "aux": aux}
     if build_cache:
         out["kv"] = kv
     return out
@@ -208,11 +346,11 @@ def _decode_layers(cfg: ModelConfig, params: Params, cache, tokens,
     """Every layer of one decode step; returns logits (B, V).  Attention
     layers update their ring or pools in place; recurrent layers write
     their new state into the cache's own tensors with ``inplace``, else
-    the cache's entry is replaced by the new state."""
-    _check_family(cfg)
+    the cache's entry is replaced by the new state.  MoE layers run the
+    static form (no host read: the step can be captured)."""
     rope = cfg.rope_pct > 0.0
     paged = "pages" in cache
-    x = _embed_tokens(cfg, params, tokens[:, None])
+    x = _embed_tokens(cfg, params, tokens[:, None], positions[:, None])
     for i, (lp, mixer) in enumerate(zip(params["layers"], _mixers(cfg))):
         h = L.apply_norm(lp["norm1"], x, cfg)
         entry = cache["layers"][i]
@@ -225,10 +363,18 @@ def _decode_layers(cfg: ModelConfig, params: Params, cache, tokens,
                 rope=rope, window=_mixer_window(cfg, mixer),
                 kernel_impl=kernel_impl)
         else:
+            ring = entry["self"] if cfg.family == "encdec" else entry
             a, _ = L.decode_attention(
-                lp["attn"], h, entry, cfg, positions, rope=rope,
+                lp["attn"], h, ring, cfg, positions, rope=rope,
                 window=_mixer_window(cfg, mixer), kernel_impl=kernel_impl)
-        x = _ffn_block(lp, x + a, cfg)
+        x = x + a
+        if cfg.family == "encdec" and mixer in ATTN_MIXERS:
+            ca, _ = L.decode_attention(
+                lp["xattn"], L.apply_norm(lp["norm_x"], x, cfg), None, cfg,
+                positions, rope=False, cross_kv=(entry["xk"], entry["xv"]),
+                kernel_impl=kernel_impl)
+            x = x + ca
+        x, _ = _ffn_block(lp, x, cfg)
     return _unembed(cfg, params, x)[:, 0]
 
 
@@ -239,10 +385,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache, tokens, positions,
     ``"pages"`` table decodes attention layers against the paged pools
     (the fused step kernel appends and attends); otherwise each attention
     layer writes its ring slot and attends over the ring (the ring decode
-    kernel).  Recurrent layers take the single-step update either way.
-    Attention caches are updated in place; recurrent entries and
-    ``cache["pos"]`` are replaced by new tensors.  Returns (logits (B, V),
-    cache) with ``cache["pos"]`` advanced to positions + 1.
+    kernel), and an encdec layer then attends over its fixed
+    cross-attention K/V.  Recurrent layers take the single-step update
+    either way.  Attention caches are updated in place; recurrent entries
+    and ``cache["pos"]`` are replaced by new tensors.  Returns (logits
+    (B, V), cache) with ``cache["pos"]`` advanced to positions + 1.
     ``decode_step_inplace`` is the same step with every leaf updated in
     place (what the engines capture)."""
     logits = _decode_layers(cfg, params, cache, tokens, positions,
@@ -268,52 +415,65 @@ def decode_step_inplace(cfg: ModelConfig, params: Params, cache, tokens,
 
 # ========================================================== striped caches
 def _ring_width(cfg: ModelConfig, mixer: str, max_len: int) -> int:
-    win = _mixer_window(cfg, mixer)
+    win = _mixer_window(cfg, mixer, max_len)
     return min(win, max_len) if win is not None else max_len
 
 
 def init_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
                dtype=torch.float32, device=None):
     """Zeroed striped decode cache: a ring per attention layer of width
-    W = min(window, max_len) (``max_len`` for global layers), the state
-    per recurrent layer, and the per-slot positions."""
-    _check_family(cfg)
+    W = min(window, max_len) (``max_len`` for global layers; the window
+    for ``attn_full`` past the long-context threshold), the fixed
+    cross-attention K/V of an encdec layer, the state per recurrent
+    layer, and the per-slot positions."""
     dev = resolve_device(device)
     layers = []
     for mixer in _mixers(cfg):
         if mixer in STATE_MIXERS:
             layers.append(_INIT_STATE[mixer](cfg, n_slots, dtype, dev))
-        else:
-            layers.append(L.init_kv_cache(
-                cfg, n_slots, max_len, dtype, dev,
-                window=_ring_width(cfg, mixer, max_len)))
+            continue
+        ring = L.init_kv_cache(cfg, n_slots, max_len, dtype, dev,
+                               window=_ring_width(cfg, mixer, max_len))
+        if cfg.family == "encdec":
+            shape = (n_slots, cfg.enc_seq, cfg.n_kv_heads, cfg.d_head)
+            ring = {"self": ring,
+                    "xk": torch.zeros(shape, dtype=dtype, device=dev),
+                    "xv": torch.zeros(shape, dtype=dtype, device=dev)}
+        layers.append(ring)
     return {"layers": layers,
             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
 
 
 def _batch_rows(entry):
     """(batch size, device) of one layer's prefill output."""
-    t = next(iter(entry.values())) if isinstance(entry, dict) else entry[0]
-    return t.shape[0], t.device
+    while not isinstance(entry, torch.Tensor):
+        entry = (next(iter(entry.values())) if isinstance(entry, dict)
+                 else entry[0])
+    return entry.shape[0], entry.device
 
 
 def cache_from_prefill(cfg: ModelConfig, kv, max_len: int, n_tokens: int):
-    """The striped decode cache of a prefill batch of ``n_tokens``-token
-    prompts, from ``forward(build_cache=True)["kv"]``: each attention
-    layer's K/V become its ring (the last W tokens at their ring slots
-    when the prompt is longer than the ring), each recurrent layer's final
-    state is kept, and every row's position is the prompt length."""
+    """The striped decode cache of a prefill batch, from
+    ``forward(build_cache=True)["kv"]``: each attention layer's K/V become
+    its ring (the last W tokens at their ring slots when the sequence is
+    longer than the ring), an encdec layer keeps its cross-attention K/V,
+    each recurrent layer's final state is kept, and every row's position
+    is ``n_tokens``, the prefill's position count (patches + text)."""
     layers = []
     for mixer, entry in zip(_mixers(cfg), kv):
         if mixer in STATE_MIXERS:
             layers.append(entry)
             continue
-        k, v = entry
+        cross = entry if cfg.family == "encdec" else None
+        k, v = cross["self"] if cross is not None else entry
         B, S = k.shape[0], k.shape[1]
         positions = torch.arange(S, device=k.device).expand(B, S)
-        layers.append(L.kv_cache_from_prefill(
+        ring = L.kv_cache_from_prefill(
             cfg, k, v, positions, max_len,
-            window=_ring_width(cfg, mixer, max_len)))
+            window=_ring_width(cfg, mixer, max_len))
+        if cross is not None:
+            ring = {"self": ring, "xk": cross["xk"], "xv": cross["xv"]}
+        layers.append(ring)
     B, dev = _batch_rows(kv[0])
     return {"layers": layers,
             "pos": torch.full((B,), n_tokens, dtype=torch.int32,
@@ -322,13 +482,25 @@ def cache_from_prefill(cfg: ModelConfig, kv, max_len: int, n_tokens: int):
 
 # ============================================================== batch maker
 def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0,
-               device=None) -> Dict[str, torch.Tensor]:
-    """Random token batch {"tokens": (batch, seq_len) int64} drawn with
-    numpy from ``seed`` (the ported families carry tokens only)."""
-    _check_family(cfg)
+               device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Random batch drawn with numpy from ``seed``: {"tokens": (batch,
+    S_text) int64} with S_text = ``seq_len`` less the patches of a vlm
+    config, plus standard-normal "patches" (batch, n_patches, d) (vlm) or
+    "frames" (batch, enc_seq, d) (encdec) in ``dtype``."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (batch, seq_len))
-    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+    dev = resolve_device(device)
+    s_text = seq_len - cfg.n_patches if cfg.n_patches else seq_len
+    toks = rng.integers(0, cfg.vocab_size, (batch, s_text))
+    out = {"tokens": torch.from_numpy(toks).to(dev)}
+    extra = {}
+    if cfg.n_patches:
+        extra["patches"] = (batch, cfg.n_patches, cfg.d_model)
+    if cfg.family == "encdec":
+        extra["frames"] = (batch, cfg.enc_seq, cfg.d_model)
+    for name, shape in extra.items():
+        out[name] = torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+    return out
 
 
 # ============================================================ paged caches
@@ -342,8 +514,11 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
     recurrent layers hold their state per slot, and the top level holds
     the shared page table (all -1), also when no layer has pools (xLSTM:
     the engine still allocates pages, as the JAX one does).
-    ``n_pages``/``max_pages`` default from ``max_len``."""
-    _check_family(cfg)
+    ``n_pages``/``max_pages`` default from ``max_len``.  The encdec
+    family stays striped: its cross-attention K/V are fixed per slot."""
+    if cfg.family == "encdec":
+        raise ValueError("paged caches cover decoder-only families "
+                         "(cross-attention K/V is fixed-size per slot)")
     dev = resolve_device(device)
     if page_size is None:
         page_size = DEFAULT_PAGE_SIZE
@@ -410,9 +585,10 @@ def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row,
 
 def supports_prefix_sharing(cfg: ModelConfig) -> bool:
     """CoW prefix sharing covers configs whose every layer keeps paged
-    attention state (every dense config): recurrent layers fold the whole
-    prefix into one state vector, which cannot be shared by pages, so the
-    hybrid and ssm families are excluded."""
+    attention state (the dense, moe and vlm configs): recurrent layers
+    fold the whole prefix into one state vector, which cannot be shared
+    by pages, so the hybrid and ssm families are excluded, and encdec
+    stays striped entirely."""
     return cfg.family != "encdec" and all(
         mixer in ATTN_MIXERS for mixer in _mixers(cfg))
 
@@ -426,8 +602,8 @@ def paged_suffix_prefill(cfg: ModelConfig, params: Params, cache, tokens,
     tokens: (1, S_suffix); ``start`` is the shared token count, so
     positions run start..start+S-1.  Each layer writes the suffix K/V into
     the slot's pages and attends suffix queries over the slot's table.
-    Returns (last-position logits (1, V), cache)."""
-    _check_family(cfg)
+    A ``moe`` ffn runs the grouped form with no drops, as every serving
+    prefill does.  Returns (last-position logits (1, V), cache)."""
     if not supports_prefix_sharing(cfg):
         raise NotImplementedError(f"suffix prefill covers attention-only "
                                   f"configs, not {cfg.arch_id}")
@@ -435,14 +611,14 @@ def paged_suffix_prefill(cfg: ModelConfig, params: Params, cache, tokens,
     pt_row = cache["pages"][slot]
     positions = (start + torch.arange(S, device=tokens.device))[None]
     rope = cfg.rope_pct > 0.0
-    x = _embed_tokens(cfg, params, tokens)
-    for lp, pool, entry in zip(params["layers"], cache["layers"],
-                               _entries(cfg)):
+    x = _embed_tokens(cfg, params, tokens, positions)
+    for lp, pool, mixer in zip(params["layers"], cache["layers"],
+                               _mixers(cfg)):
         h = L.apply_norm(lp["norm1"], x, cfg)
         a, _ = L.paged_suffix_attention(
             lp["attn"], h, pool, cfg, positions, pt_row, rope=rope,
-            window=_mixer_window(cfg, entry.split(":")[0]))
-        x = _ffn_block(lp, x + a, cfg)
+            window=_mixer_window(cfg, mixer))
+        x, _ = _ffn_block(lp, x + a, cfg, grouped=True)
     logits = _unembed(cfg, params, x)[:, -1]
     cache["pos"][slot] = start + S
     return logits, cache

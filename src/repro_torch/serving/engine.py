@@ -55,7 +55,7 @@ from repro_torch.models import (DEFAULT_PAGE_SIZE, PackedKV, PageTable,
                                 PrefixIndex, cache_from_prefill,
                                 cache_gather, cache_scatter, decode_step,
                                 decode_step_inplace, forward, init_cache,
-                                init_paged_cache,
+                                init_paged_cache, n_positions,
                                 pack_single_cache, paged_adopt_scatter,
                                 paged_copy_page, paged_geometry, paged_pack,
                                 paged_prefill_scatter, paged_suffix_prefill,
@@ -75,7 +75,9 @@ if TYPE_CHECKING:                                    # pragma: no cover
 
 class InferenceEngine:
     """Static-batch reference engine: one prefill, fixed decode loop over
-    the striped ring cache.  ``kernel_impl``: see ``models.layers``."""
+    the striped ring cache.  Batches carry "patches" (vlm) or "frames"
+    (encdec) beside "tokens"; MoE layers drop nothing.  ``kernel_impl``:
+    see ``models.layers``."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int = 4096,
                  kernel_impl: str = "kernel"):
@@ -86,12 +88,15 @@ class InferenceEngine:
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, dict]:
-        """Last-position logits (B, V) and the striped decode cache."""
+        """Last-position logits (B, V) and the striped decode cache of
+        length ``cache_len``, positioned after the prefill's last position
+        (patches + tokens)."""
         cache_len = cache_len or self.max_len
         out = forward(self.cfg, self.params, batch, build_cache=True,
+                      cache_len=cache_len, moe_cf=None,
                       kernel_impl=self.kernel_impl, last_only=True)
         return out["logits"][:, -1], cache_from_prefill(
-            self.cfg, out["kv"], cache_len, batch["tokens"].shape[1])
+            self.cfg, out["kv"], cache_len, n_positions(self.cfg, batch))
 
     def generate(self, batch: Dict, max_new_tokens: int, *,
                  greedy: bool = True,
@@ -100,7 +105,11 @@ class InferenceEngine:
                  cache_len: Optional[int] = None) -> torch.Tensor:
         """Returns (B, max_new_tokens) generated token ids.  ``greedy=False``
         samples from softmax(logits / temperature) with ``generator`` (a
-        ``torch.Generator`` on the parameters' device)."""
+        ``torch.Generator`` on the parameters' device).  ``cache_len``
+        defaults to the text tokens plus ``max_new_tokens``, as in the JAX
+        package: a vlm batch's patches are not counted, so its ring wraps
+        over the first positions in the last steps (pass ``cache_len`` to
+        keep them)."""
         if not greedy and generator is None:
             raise ValueError("sampling needs a torch.Generator")
         logits, cache = self.prefill(
@@ -171,12 +180,15 @@ class ContinuousBatchingEngine:
         self.max_len = max_len
         self.kernel_impl = kernel_impl
         self.role = role
-        if role != "unified" and not paged:
+        if role != "unified" and not (paged and cfg.family != "encdec"):
             raise ValueError(
                 f"{role}-role engine needs the paged KV layout — the "
                 f"prefill → decode wire is the page-granular PackedKV "
                 f"path")
-        self.paged = paged
+        # encdec keeps fixed-size cross-attention K/V per slot: it stays
+        # on the striped layout, as in the JAX package
+        self.paged = paged and cfg.family != "encdec"
+        paged = self.paged
         self.prefix_sharing = bool(paged and prefix_sharing
                                    and supports_prefix_sharing(cfg))
         dtype = params["embed"].dtype
@@ -358,7 +370,8 @@ class ContinuousBatchingEngine:
             tokens = torch.tensor([toks], dtype=torch.int64,
                                   device=self.device)
             out = forward(self.cfg, self.params, {"tokens": tokens},
-                          build_cache=True, kernel_impl=self.kernel_impl,
+                          build_cache=True, cache_len=self.max_len,
+                          moe_cf=None, kernel_impl=self.kernel_impl,
                           last_only=True)
             first = out["logits"][0, -1:].argmax(-1)
             if self.paged:

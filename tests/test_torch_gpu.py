@@ -11,13 +11,16 @@ the RG-LRU sweep of ``tests/test_kernels.py``, which reach widths the
 serving path never uses (dh=8, 4-token pages), plus the paths of the bf16
 tensor-core flash kernel (padded head dims, S below one mma tile) and of
 the fused step's split walk (few slots with long lens, empty shares, FREE
-rows, 100 steps on one pool); ``chip_smoke.py`` covers the serving path's
-shapes.  Tolerances are theirs: 2e-5 in fp32 (TF32
+rows, 100 steps on one pool) and the heads of every family's config
+(qwen2-moe 16/16, pixtral 32/8, llama4 40/8, whisper 20/20 at dh 64,
+its encoder non-causal over 1500 frames); ``chip_smoke.py`` covers the
+serving path's shapes.  Tolerances are theirs: 2e-5 in fp32 (TF32
 off) and 2e-2 in bf16 for attention, with the pools byte-equal outside
 the trash page; 1e-4 and 5e-2 for the scan; 2e-4 and 5e-2 for the mLSTM
 (``tests/test_kernels.py``) on h, and 2e-4 on the final (C, n, m) in
 either dtype.  The compiled decode tick (the end of the file) is held
-on reduced models of each family, paged and striped: the engine's
+on reduced models of each family (MoE and VLM too), paged and striped,
+the MoE step also under the sync debug mode: the engine's
 graph replay against the eager ``decode_step`` on a cloned cache (fp32
 within 1e-6 of the largest logit, bitwise expected; bf16 argmax equal),
 launch counts equal to the eager path's, two engines of different sizes
@@ -52,6 +55,10 @@ PAGED_BUCKETS = [
     # the kernels' 8 warps), dh 256 (the fp32 tile at the register budget)
     (2, 10, 1, 256, 16, 6, 40, "f32"),
     (3, 10, 1, 256, 16, 5, None, "bf16"),
+    # qwen2-moe (16/16), pixtral (32/8) and llama4 (40/8, windowed) heads
+    (8, 16, 16, 128, 16, 8, None, "bf16"),
+    (4, 32, 8, 128, 16, 6, None, "f32"),
+    (3, 40, 8, 128, 16, 10, 100, "bf16"),
 ]
 # (B, H, KVH, S, dh, causal, window, dtype); S not a tile multiple too
 FLASH_BUCKETS = [
@@ -66,6 +73,14 @@ FLASH_BUCKETS = [
     (1, 10, 1, 130, 256, True, 64, "f32"),
     (2, 4, 1, 71, 256, True, None, "bf16"),
     (1, 2, 1, 40, 192, True, None, "f32"),
+    # qwen2-moe, pixtral and llama4 heads; whisper's encoder over 1500
+    # frames (non-causal) and its decoder
+    (1, 16, 16, 100, 128, True, None, "bf16"),
+    (1, 32, 8, 90, 128, True, None, "f32"),
+    (1, 40, 8, 150, 128, True, 64, "bf16"),
+    (2, 20, 20, 1500, 64, False, None, "bf16"),
+    (1, 20, 20, 300, 64, False, None, "f32"),
+    (1, 20, 20, 448, 64, True, None, "f32"),
 ]
 # (B, H, KVH, W, dh, window, dtype)
 DECODE_BUCKETS = [
@@ -77,6 +92,9 @@ DECODE_BUCKETS = [
     (1, 2, 1, 32, 64, 8, "f32"),
     (2, 10, 1, 100, 256, 64, "bf16"),
     (2, 10, 1, 100, 256, None, "f32"),
+    # whisper's decoder self-attention (20/20 heads, dh 64)
+    (4, 20, 20, 128, 64, None, "bf16"),
+    (2, 20, 20, 448, 64, None, "f32"),
 ]
 # (B, S, d); d 130 is no multiple of a 16-byte vector (the kernel's
 # element-wise loads); the last three have many chunks a chain at
@@ -1131,7 +1149,8 @@ def test_live_cluster_scale_down_frees_device_memory(cuda):
 
 
 # ------------------------------------------------- the compiled decode tick
-GRAPH_ARCHS = {"qwen2.5-3b": None, "recurrentgemma-2b": 5, "xlstm-1.3b": None}
+GRAPH_ARCHS = {"qwen2.5-3b": None, "recurrentgemma-2b": 5, "xlstm-1.3b": None,
+               "qwen2-moe-a2.7b": None, "pixtral-12b": None}
 
 
 def _graph_engine(arch, dtype, paged, dev, n_slots=3, seed=0):
@@ -1245,6 +1264,31 @@ def test_decode_graph_launch_counts_equal_eager(cuda, arch, paged):
     assert got == {k: want.get(k, 0) for k in got}
     assert eng.decode_graph.replays == s["decode_ticks"] - 1
     assert len(out) == 5
+
+
+@pytest.mark.gpu
+def test_moe_decode_step_never_syncs_the_host(cuda):
+    """The MoE decode step (the static dispatch: counts by scatter-add, no
+    host read) runs under ``set_sync_debug_mode("error")``, and the
+    engine captured it as a graph whose replays equal the eager step;
+    the grouped prefill form, which reads the expert counts once a layer,
+    is refused by the same mode."""
+    from repro_torch.models import decode_step_inplace
+    from repro_torch.models import moe
+    cfg, params, eng = _graph_engine("qwen2-moe-a2.7b", "f32", True, cuda)
+    cache, tok = _cache_clone(eng.cache), eng._tok.clone()
+    x = torch.randn((1, 40, cfg.d_model), device=cuda)
+    p = next(lp["moe"] for lp in params["layers"] if "moe" in lp)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_step_inplace(cfg, params, cache, tok)
+        moe.apply_moe(p, x, cfg, capacity_factor=None, need_aux=False)
+        with pytest.raises(RuntimeError):
+            moe.apply_moe(p, x, cfg, capacity_factor=None, grouped=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _replay_vs_eager(cfg, params, eng, "f32")
 
 
 @pytest.mark.gpu

@@ -174,13 +174,6 @@ def test_paged_decode_matches_jax(arch, impl):
                     atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["pixtral-12b", "qwen2-moe-a2.7b"])
-def test_other_families_raise(arch):
-    pcfg = pconfigs.reduced(pconfigs.get_config(arch), d_model=64)
-    with pytest.raises(NotImplementedError):
-        pm.init_params(pcfg, device="cpu")
-
-
 # ------------------------------------------------------------ hybrid family
 def test_bridge_keeps_lam_fp32_under_bf16():
     cfg, pcfg, jp, tp = _pair(HYBRID, dtype=torch.bfloat16)
