@@ -116,7 +116,24 @@ Phases (any failure exits non-zero, with no result line):
      patches, paged, striped) and whisper (static with frames), every
      token held to the plain teacher-forced argmax; (f) the live cluster
      on qwen2-moe at depth 4 in fp32, as 10c, with 8 requests (path
-     ``cluster-fp32-moe``).
+     ``cluster-fp32-moe``);
+ 13. training and the last serve modes: (a) full-width qwen2.5-3b in fp32
+     through ``Trainer`` on the Markov corpus (2 x 512 tokens a step, 8
+     steps): every loss finite, the last nll below the first, ms a step,
+     tokens/s and peak device GB beside the reckoned 16 B a parameter;
+     (b) at the first batch the training loss (plain path, gradients)
+     equals the no-grad kernel forward's (36 flash launches, path
+     ``train-kernel-loss``) within 1e-5; the training steps launch no
+     kernel (path ``train``); (c) 2-layer full-width qwen2.5-3b, every
+     gradient leaf on the card within 1e-4 relative L2 of the CPU's; (d)
+     2-layer full-width stablelm-1.6b, 3 steps of ``adamw_update``
+     against ``torch.optim.AdamW`` on the same gradients (update, mu and
+     nu within 1e-5); (e) a 4-layer qwen2.5-3b checkpoint round trip with
+     bit-equal logits, and one qwen2-moe training step with aux > 0; (f)
+     ``launch/serve.py`` --slo, --disagg and --overload at full width in
+     bf16 (paths ``serve-slo``, ``serve-disagg``, ``serve-overload``,
+     paged-step and flash launches nonzero), then every
+     ``examples/torch_*.py`` at its defaults.
 Each path is driven with every launch count set to 0 just before it and
 read just after; a graph replay adds the launches its capture recorded.
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
@@ -2821,6 +2838,279 @@ def check_families_fp32(seed: int) -> None:
         f"at full depth (static with frames)")
 
 
+# ------------------------------------------------------------ phase 13
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 512, 8
+TRAIN_LOSS_TOL = 1e-5       # training loss vs the kernel forward's, relative
+TRAIN_GRAD_TOL = 1e-4       # card vs CPU gradient, relative L2 a leaf
+ADAMW_TOL = 1e-5            # adamw_update vs torch.optim.AdamW, relative L2
+SERVE_MODES = ("slo", "disagg", "overload")
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in fp64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def train_full_width(seed: int) -> None:
+    """13a: full-width qwen2.5-3b in fp32 through ``Trainer`` on the
+    Markov corpus, B x S = 2 x 512, 8 steps: every loss finite, the last
+    nll below the first; ms a step, tokens/s, peak device GB beside the
+    reckoned 16 B a parameter (weights, gradients, mu, nu) plus
+    activations.  13b: at the first batch, the training loss (the plain
+    path with gradients) equals the loss of the no-grad kernel forward,
+    which launches flash once a layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.training import AdamWConfig, Trainer, data_iterator
+    from repro_torch.training.train_loop import loss_terms, to_device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(cfg, seed=seed, device="cuda")
+    n = sum(t.numel() for t in _leaves(params))
+    it = data_iterator(cfg, TRAIN_B, TRAIN_S, seed=seed)
+    batches = [next(it) for _ in range(TRAIN_STEPS)]
+    first = to_device(batches[0], "cuda")
+    out, _, counts = drive("train-kernel-loss", lambda: forward(
+        cfg, params, first, kernel_impl="kernel"))
+    expect("train-kernel-loss", counts, {"flash_attention": cfg.n_layers})
+    kernel_loss = float(loss_terms(out, first["tokens"])[0])
+    del out
+    tr = Trainer(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+                                  total_steps=TRAIN_STEPS),
+                 device="cuda", params=params)
+    hist, secs = [], []
+
+    def run():
+        for b in batches:
+            t0 = time.perf_counter()
+            hist.append(tr.step(b))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    _, wall, counts = drive("train", run)
+    expect("train", counts, {})         # the plain path: no kernel
+    if not all(math.isfinite(h[k]) for h in hist for k in ("loss", "nll")):
+        raise AssertionError(f"training loss not finite: {hist}")
+    if not hist[-1]["nll"] < hist[0]["nll"]:
+        raise AssertionError(f"nll did not fall: {[h['nll'] for h in hist]}")
+    rel = abs(hist[0]["loss"] - kernel_loss) / abs(kernel_loss)
+    if rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"training loss {hist[0]['loss']} vs kernel "
+                             f"forward's {kernel_loss}: {rel:.3g} relative")
+    peak = torch.cuda.max_memory_allocated()
+    acts = (3 * TRAIN_B * TRAIN_S * cfg.vocab_size * 4
+            + cfg.n_layers * TRAIN_B * TRAIN_S * cfg.d_model * 4)
+    ms = sum(secs[1:]) / (len(secs) - 1) * 1e3
+    log(f"[train] {TRAIN_ARCH} full width fp32 ({n / 1e9:.3f}B params), "
+        f"{TRAIN_B} x {TRAIN_S} tokens a step, {TRAIN_STEPS} steps in "
+        f"{wall:.2f} s: {ms:.1f} ms a step after the first "
+        f"({secs[0] * 1e3:.1f} ms), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} "
+        f"tokens/s; nll " + " ".join(f"{h['nll']:.4f}" for h in hist)
+        + f"; grad norm {hist[0]['grad_norm']:.3f} -> "
+        f"{hist[-1]['grad_norm']:.3f}")
+    log(f"[train] peak device memory {peak / 1e9:.2f} GB against "
+        f"{16 * n / 1e9:.2f} GB reckoned (16 B a parameter: weights, "
+        f"gradients, mu, nu) + {acts / 1e9:.2f} GB of activations "
+        f"(fp32 logits x3, one checkpointed input a layer)")
+    log(f"[train] 13b: training loss {hist[0]['loss']:.7f} vs the kernel "
+        f"forward's {kernel_loss:.7f} ({cfg.n_layers} flash launches): "
+        f"{rel:.3g} relative (tolerance {TRAIN_LOSS_TOL})")
+    del tr, params
+    torch.cuda.empty_cache()
+
+
+def grads_card_vs_cpu(seed: int) -> None:
+    """13c: qwen2.5-3b at full width, depth cut to 2, B x S = 1 x 128 in
+    fp32: every gradient leaf on the card within TRAIN_GRAD_TOL relative
+    L2 of the same step on the CPU (which the CPU tests hold to JAX); a
+    leaf whose gradient is rounding only (a key bias) is held to 1e-7 of
+    the whole gradient's norm instead."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import data_iterator
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_loop import to_device, value_and_grad
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    card = init_params(cfg, seed=seed, device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), card)
+    batch = next(data_iterator(cfg, 1, 128, seed=seed + 1))
+    t0 = time.perf_counter()
+    (loss_c, _), g_cpu = value_and_grad(cfg, cpu, to_device(batch, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    (loss_g, _), g_card = value_and_grad(cfg, card, to_device(batch, "cuda"))
+    want = tree_leaves(g_cpu)
+    got = [g.cpu() for g in tree_leaves(g_card)]
+    total = math.sqrt(sum(float(w.double().square().sum()) for w in want))
+    worst = 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        err = float((g.double() - w.double()).norm())
+        if err > max(TRAIN_GRAD_TOL * float(w.double().norm()),
+                     1e-7 * total):
+            raise AssertionError(f"gradient leaf {i}: card vs CPU "
+                                 f"{err:.3g} of {float(w.norm()):.3g}")
+        worst = max(worst, _rel_l2(g, w) if float(w.norm()) > 1e-7 * total
+                    else 0.0)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    log(f"[train] 13c: {len(want)} gradient leaves of 2-layer full-width "
+        f"{TRAIN_ARCH}, card vs CPU: worst {worst:.3g} relative L2 "
+        f"(tolerance {TRAIN_GRAD_TOL}), loss {rel:.3g} relative; CPU step "
+        f"{cpu_s:.2f} s")
+    del card, g_card
+    torch.cuda.empty_cache()
+
+
+def adamw_vs_torch(seed: int) -> None:
+    """13d: stablelm-1.6b at full width, depth 2, fp32, 3 steps: on the
+    same gradients ``adamw_update`` moves every leaf as
+    ``torch.optim.AdamW`` does (param groups from ``decay_mask``,
+    ``clip_grad_norm_``, a ``LambdaLR`` giving ``lr_at(step + 1)``): the
+    weights, mu and nu within ADAMW_TOL relative L2 a leaf (the update
+    itself is printed)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      data_iterator, init_opt_state, lr_at)
+    from repro_torch.training.optimizer import decay_mask, tree_leaves
+    from repro_torch.training.train_loop import to_device, value_and_grad
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=3)
+    params = init_params(cfg, seed=seed, device="cuda")
+    start = [t.clone() for t in tree_leaves(params)]
+    ref = [t.clone() for t in start]
+    mask = tree_leaves(decay_mask(cfg, params))
+    opt = torch.optim.AdamW(
+        [{"params": [p for p, m in zip(ref, mask) if m],
+          "weight_decay": opt_cfg.weight_decay},
+         {"params": [p for p, m in zip(ref, mask) if not m],
+          "weight_decay": 0.0}],
+        lr=opt_cfg.lr, betas=(opt_cfg.beta1, opt_cfg.beta2),
+        eps=opt_cfg.eps, foreach=False)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda s: float(lr_at(opt_cfg, s + 1)) / opt_cfg.lr)
+    state = init_opt_state(params)
+    decay = decay_mask(cfg, params)
+    it = data_iterator(cfg, 1, 128, seed=seed + 2)
+    for _ in range(3):
+        _, grads = value_and_grad(cfg, params, to_device(next(it), "cuda"))
+        params, state, met = adamw_update(opt_cfg, params, grads, state,
+                                          decay=decay)
+        for p, g in zip(ref, tree_leaves(grads)):
+            p.grad = g.clone()
+        torch.nn.utils.clip_grad_norm_(ref, opt_cfg.grad_clip)
+        opt.step()
+        sched.step()
+    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0, "update": 0.0}
+    for p, p0, r, mu, nu in zip(tree_leaves(params), start, ref,
+                                tree_leaves(state["mu"]),
+                                tree_leaves(state["nu"])):
+        st = opt.state[r]
+        for name, a, b in (("params", p, r), ("mu", mu, st["exp_avg"]),
+                           ("nu", nu, st["exp_avg_sq"]),
+                           ("update", p - p0, r - p0)):
+            e = _rel_l2(a, b)
+            worst[name] = max(worst[name], e)
+            # the update's own error is not held: it is a difference of
+            # fp32 weights ~1e3 times its size (a norm scale of 1 moved
+            # by ~3e-4 carries the weights' last-bit rounding)
+            if e > ADAMW_TOL and name != "update":
+                raise AssertionError(f"adamw_update vs torch.optim.AdamW: "
+                                     f"{name} {e:.3g} relative L2")
+    log(f"[train] 13d: adamw_update vs torch.optim.AdamW, 2-layer "
+        f"full-width stablelm-1.6b, 3 steps ({len(ref)} leaves, "
+        f"{sum(mask)} decayed; last lr {float(met['lr']):.3e}, grad norm "
+        f"{float(met['grad_norm']):.3f}): worst relative L2 "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tolerance {ADAMW_TOL})")
+    del params, ref, start, opt, state
+    torch.cuda.empty_cache()
+
+
+def checkpoint_and_moe(seed: int) -> None:
+    """13e: a tensor-packed checkpoint of qwen2.5-3b at depth 4 (bf16)
+    written, read back onto the card and its logits bit-equal to the
+    source's; qwen2-moe-a2.7b at full width, depth 2, one fp32 training
+    step: the load-balance aux is positive and the loss is nll + aux."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, make_batch
+    from repro_torch.training import (AdamWConfig, Trainer, data_iterator,
+                                      load_checkpoint, save_checkpoint)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=4)
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16,
+                         device="cuda")
+    batch = make_batch(cfg, 2, 256, seed=seed + 3, device="cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, cfg, params, n_blocks=4, step=1)
+        loaded, step = load_checkpoint(d, cfg, device="cuda")
+    ck_s = time.perf_counter() - t0
+    a = forward(cfg, params, batch)["logits"]
+    b = forward(cfg, loaded, batch)["logits"]
+    if step != 1 or not torch.equal(a, b):
+        raise AssertionError(f"checkpoint round trip: step {step}, max "
+                             f"|logit diff| {float((a - b).abs().max())}")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[train] 13e: checkpoint of 4-layer full-width {TRAIN_ARCH} "
+        f"({nbytes / 1e9:.3f} GB bf16, 4 blocks) saved and loaded in "
+        f"{ck_s:.2f} s; logits bit-equal")
+    del params, loaded, a, b
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2)
+    tr = Trainer(cfg, AdamWConfig(warmup_steps=1, total_steps=10),
+                 seed=seed, device="cuda")
+    met = tr.step(next(data_iterator(cfg, 1, 256, seed=seed + 4)))
+    if not (met["aux"] > 0 and met["loss"] > met["nll"]
+            and math.isfinite(met["loss"])):
+        raise AssertionError(f"MoE training step: {met}")
+    log(f"[train] 13e: {MOE_ARCH} full width, depth 2, one step: loss "
+        f"{met['loss']:.4f} = nll {met['nll']:.4f} + aux {met['aux']:.5f}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def serve_modes_and_examples(seed: int) -> None:
+    """13f: ``launch/serve.py`` --slo, --disagg and --overload at full
+    width in bf16 (their own assertions: tokens equal across policies,
+    disaggregated tokens bit-equal to unified), each a counted path with
+    paged-step and flash launches; then every ``examples/torch_*.py`` at
+    its defaults."""
+    import argparse
+    import importlib.util
+    import torch
+    from repro_torch.launch import serve
+    args = argparse.Namespace(arch=TRAIN_ARCH, d_model=None, device=None,
+                              dtype="bfloat16", seed=seed, requests=8,
+                              prompt=64, tokens=16, slots=4, nodes=6)
+    for mode in SERVE_MODES:
+        _, wall, counts = drive(f"serve-{mode}",
+                                lambda m=mode: getattr(serve, f"run_{m}")(
+                                    args))
+        if not (counts["paged_decode_step"] and counts["flash_attention"]):
+            raise AssertionError(f"--{mode}: kernels not launched: {counts}")
+        log(f"[serve] --{mode} full width bf16 in {wall:.2f} s; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        torch.cuda.empty_cache()
+    for path in sorted((ROOT / "examples").glob("torch_*.py")):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main([])
+        torch.cuda.synchronize()
+        log(f"[example] {path.name} at its defaults in "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2928,6 +3218,14 @@ def main() -> int:
     check_families_fp32(args.seed)
     check_cluster_fp32(args.seed, "moe", n_requests=8)
     log(f"[phase] 12 (qwen2-moe, llama4, pixtral, whisper) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_full_width(args.seed)
+    grads_card_vs_cpu(args.seed)
+    adamw_vs_torch(args.seed)
+    checkpoint_and_moe(args.seed)
+    serve_modes_and_examples(args.seed)
+    log(f"[phase] 13 (training, --slo/--disagg/--overload, examples) in "
         f"{time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"

@@ -111,6 +111,21 @@ def check(err: int, what: str) -> None:
                            f"{err}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would record through a CUDA kernel: the
+    kernels have no backward, so their output would be silently detached
+    from every input that requires a grad.  Gradients go through the
+    plain path (``kernel_impl="plain"``, as ``models.train_forward``
+    runs it); serving calls the kernels under ``torch.no_grad()``."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward and an input requires "
+            f"a grad; call it under torch.no_grad() or take the plain path "
+            f"(kernel_impl='plain') for gradients")
+
+
 def dtype_code(dtype) -> int:
     """The kernels' storage-type argument: 0 = float32, 1 = bfloat16."""
     import torch

@@ -41,6 +41,7 @@ def decode_attention(q, k, v, spos, pos, *, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    _build.refuse_grad("decode_attention", q, k, v)
     B, H, dh = q.shape
     _, W, KVH, _ = k.shape
     if (k.shape != (B, W, KVH, dh) or v.shape != k.shape or H % KVH

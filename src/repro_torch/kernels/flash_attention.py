@@ -36,6 +36,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     B, H, S, dh = q.shape
     KVH = k.shape[1]
     if (k.shape != (B, KVH, S, dh) or v.shape != k.shape or H % KVH

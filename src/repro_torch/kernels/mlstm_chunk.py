@@ -36,6 +36,8 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state=None):
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise runs on cpu or cuda, not "
                          f"{q.device}")
+    _build.refuse_grad("mlstm_chunkwise", q, k, v, i_pre, f_pre,
+                       *(state or ()))
     B, H, S, dh = q.shape
     if k.shape != q.shape or v.shape != q.shape or \
             i_pre.shape != (B, H, S) or f_pre.shape != (B, H, S):

@@ -89,6 +89,8 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, page_table, lens,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_step runs on cpu or cuda, not "
                          f"{q.device}")
+    _build.refuse_grad("paged_decode_step", q, k_new, v_new, k_pages,
+                       v_pages)
     B, H, dh = q.shape
     P, ps, KVH, dh_p = k_pages.shape
     MP = page_table.shape[-1]
@@ -152,6 +154,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lens, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    _build.refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     B, H, dh = q.shape
     P, ps, KVH, dh_p = k_pages.shape
     MP = page_table.shape[-1]

@@ -13,6 +13,18 @@ import torch
 NEG_INF = -1e30
 
 
+def acc_dtype(dtype) -> torch.dtype:
+    """The type the plain versions and the model accumulate a ``dtype``
+    tensor in: fp32, or fp64 for an fp64 tensor (a gradient check runs
+    the training path in fp64)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def upcast(x):
+    """``x`` in its accumulation type: ``x.float()``, but fp64 stays."""
+    return x.to(acc_dtype(x.dtype))
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
     """q: (B,H,S,dh), k/v: (B,KVH,S,dh) -> (B,H,S,dh)."""
     B, H, S, dh = q.shape
@@ -137,8 +149,8 @@ def rglru_scan_ref(a, b, h0):
     associative scan; the two agree to fp32 rounding)."""
     B, S, d = a.shape
     h = torch.empty((B, S, d), dtype=a.dtype, device=a.device)
-    carry = h0.float()
-    af, bf = a.float(), b.float()
+    carry = upcast(h0)
+    af, bf = upcast(a), upcast(b)
     for t in range(S):
         carry = af[:, t] * carry + bf[:, t]
         h[:, t] = carry.to(a.dtype)
@@ -159,17 +171,17 @@ def mlstm_chunk_step(q, k, v, i_pre, f_pre, state):
     m (B,H)) in fp32.  Returns (h (B,H,L,dh) in q's dtype, new state)."""
     C, n, m = state
     L = q.shape[2]
-    logf = torch.nn.functional.logsigmoid(f_pre.float())
+    logf = torch.nn.functional.logsigmoid(upcast(f_pre))
     b = torch.cumsum(logf, dim=-1)                          # inclusive
     g = b[..., -1]
-    i_pre = i_pre.float()
+    i_pre = upcast(i_pre)
     D = b[..., :, None] - b[..., None, :] + i_pre[..., None, :]
     causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     D = torch.where(causal, D, torch.full_like(D, NEG_INF))
     m_intra = D.amax(dim=-1)
     m_inter = b + m[..., None]
     m_j = torch.maximum(m_intra, m_inter)
-    qf, kf, vf = q.float(), k.float(), v.float()
+    qf, kf, vf = upcast(q), upcast(k), upcast(v)
     scores = qf @ kf.transpose(-1, -2)
     w_att = scores * torch.exp(D - m_j[..., None])
     inter_scale = torch.exp(m_inter - m_j)
@@ -195,9 +207,10 @@ def mlstm_chunkwise_ref(q, k, v, i_pre, f_pre, state=None, *,
     when None.  Returns (h (B,H,S,dh) in q's dtype, final (C, n, m))."""
     B, H, S, dh = q.shape
     if state is None:
-        state = (torch.zeros((B, H, dh, dh), device=q.device),
-                 torch.zeros((B, H, dh), device=q.device),
-                 torch.full((B, H), NEG_INF, device=q.device))
+        acc = acc_dtype(q.dtype)
+        state = (torch.zeros((B, H, dh, dh), dtype=acc, device=q.device),
+                 torch.zeros((B, H, dh), dtype=acc, device=q.device),
+                 torch.full((B, H), NEG_INF, dtype=acc, device=q.device))
     hs = []
     for t0 in range(0, S, chunk):
         sl = slice(t0, t0 + chunk)

@@ -81,6 +81,7 @@ def rglru_scan(a, b, h0):
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cpu or cuda, not {a.device}")
+    _build.refuse_grad("rglru_scan", a, b, h0)
     B, S, d = a.shape
     if b.shape != a.shape or h0.shape != (B, d):
         raise ValueError(f"rglru_scan shapes: a {tuple(a.shape)}, b "

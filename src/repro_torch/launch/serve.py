@@ -3,7 +3,11 @@ and serve a static batch through ``InferenceEngine`` (the default, as
 ``repro.launch.serve.run_engine`` does), replay a mixed-length burst
 through the continuous-batching engine (``--continuous``), scale two
 models on the live tiered cluster while it serves (``--live``), replay a
-trace under the autoscaler from zero replicas (``--autoscale``), run
+trace under the autoscaler from zero replicas (``--autoscale``), replay
+a two-model mixed-SLO trace under FCFS and under EDF with the placement
+arbiter (``--slo``), serve one trace unified and through role-split
+prefill/decode pools (``--disagg``), survive a sustained 3x overload on
+one node with preemption, page quotas and shedding (``--overload``), run
 the scale-to-zero cold-start demo with the persistent compile cache
 (``--coldstart``), or compare the scaling policies on the calibrated
 simulator (``--sim``).
@@ -21,6 +25,11 @@ simulator (``--sim``).
       --d-model 64 --device cpu --requests 6 --prompt 16 --tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --live --nodes 7
   PYTHONPATH=src python -m repro_torch.launch.serve --autoscale --nodes 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --slo --nodes 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg
+  PYTHONPATH=src python -m repro_torch.launch.serve --overload
+  PYTHONPATH=src python -m repro_torch.launch.serve --overload \\
+      --d-model 64 --device cpu --dtype float32
   PYTHONPATH=src python -m repro_torch.launch.serve --coldstart
   PYTHONPATH=src python -m repro_torch.launch.serve --coldstart \\
       --device cpu --dtype float32
@@ -33,8 +42,12 @@ asks for a reduced variant (which also cuts the vocabulary to 2048, as
 embeddings (vlm: ``--prompt`` counts them, as ``make_batch`` does) or
 frame embeddings (encdec); ``--continuous`` serves text, and not the
 encoder-decoder family, which the JAX package serves through the static
-engine only.  ``--coldstart`` runs the JAX demo's
-6-layer model at ``--d-model`` (default 64).  Weights are random, from
+engine only.  ``--slo``, ``--disagg`` and ``--overload`` serve
+``--arch`` like the other cluster modes (``--overload`` too, where the
+JAX demo fixes ``d_model`` 64); their printed TTFTs, attainments and
+audit times are on the simulated clock, their wall times on the host's.
+``--coldstart`` runs the JAX demo's 6-layer model at ``--d-model``
+(default 64).  Weights are random, from
 ``--seed``.  ``--sim``
 runs no model: it prices the scaling policies on the simulated clock of
 the paper's testbed profile (``serving.tiers.H800``).
@@ -53,11 +66,15 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.compile_cache import CompileCache
 from repro_torch.models import init_params, make_batch, payload_nbytes
-from repro_torch.serving import (POLICIES, Autoscaler, AutoscalerConfig,
-                                 ContinuousBatchingEngine, HardwareProfile,
-                                 InferenceEngine, LiveCluster, Request,
-                                 Simulator, constant_stress)
-from repro_torch.serving.workload import probe_trace
+from repro_torch.serving import (BATCH, INTERACTIVE, POLICIES,
+                                 AdmissionPolicy, Autoscaler,
+                                 AutoscalerConfig, ContinuousBatchingEngine,
+                                 EDFPolicy, HardwareProfile, InferenceEngine,
+                                 LiveCluster, PlacementArbiter, Request,
+                                 Simulator, StrictPriorityPolicy,
+                                 constant_stress)
+from repro_torch.serving.scheduler import PageQuota
+from repro_torch.serving.workload import overload_trace, probe_trace
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -246,6 +263,186 @@ def run_autoscale(args) -> None:
           f"fallback on {lc._host_payload_nodes('m')})")
 
 
+def run_slo(args) -> None:
+    """Mixed-class demo of the request control plane: the SAME bursty
+    two-model trace (interactive + batch SLO classes) replayed twice on
+    the live runtime — FCFS admission with independent scaling vs EDF
+    admission with the SLO-pressure-weighted placement arbiter — and the
+    per-class TTFT tails / SLO attainment printed side by side.  Greedy
+    tokens are identical across the two runs; only who waits changes.
+    Both models ("a" and "b") carry ``--arch``'s weights from
+    ``--seed``."""
+    device = resolve_device(args.device)
+    cfg, params = _model(args, device)
+    inter, batch = INTERACTIVE.scaled(0.02), BATCH.scaled(0.02)
+    rng = np.random.default_rng(3)
+    n = max(args.requests, 8)
+    trace = []
+    for i in range(n):       # batch half arrives first — worst for FCFS
+        slo = batch if i < n // 2 else inter
+        out = int(rng.integers(5, 8)) if slo is batch \
+            else int(rng.integers(3, 5))
+        trace.append(Request(i, "a" if i % 2 == 0 else "b",
+                             0.004 + 0.0003 * i, max(4, args.prompt // 16),
+                             out, slo=slo))
+    conditions = {
+        "fcfs+independent": (AdmissionPolicy(),
+                             PlacementArbiter(slo_weighted=False)),
+        "edf+arbiter": (EDFPolicy(), PlacementArbiter()),
+    }
+    results = {}
+    for name, (admission, arbiter) in conditions.items():
+        lc = LiveCluster(n_nodes=args.nodes, n_slots=2,
+                         max_len=max(4, args.prompt // 16) + 8 + 8,
+                         admission=admission, arbiter=arbiter, device=device)
+        lc.register("a", cfg, params, n_blocks=2, warm_copies=1)
+        lc.register("b", cfg, params, n_blocks=2, warm_copies=1)
+        asc = Autoscaler(AutoscalerConfig(cooldown_up=0.05, keepalive=0.2,
+                                          max_k=2, max_nodes=1))
+        _sync(device)
+        t0 = time.perf_counter()
+        log = lc.replay(trace, autoscaler=asc, tick_seconds=0.002,
+                        tail_seconds=0.1)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        results[name] = {m: lc.results(m) for m in ("a", "b")}
+        s = log.summary()
+        p99i = s["ttft_p99_interactive"] * 1e3
+        p99b = s["ttft_p99_batch"] * 1e3
+        print(f"{name:18s} interactive p99={p99i:6.1f}ms  "
+              f"batch p99={p99b:6.1f}ms  "
+              f"attainment={s['slo_attainment']:.2f} "
+              f"(interactive {s['slo_attainment_interactive']:.2f}) "
+              f"(simulated clock); {dt:.3f}s wall on {device_name(device)}")
+    if results["fcfs+independent"] != results["edf+arbiter"]:
+        raise AssertionError("admission policy changed the greedy tokens")
+    n_tokens = sum(len(v) for r in results["edf+arbiter"].values()
+                   for v in r.values())
+    print(f"greedy tokens bit-equal across both policies ({n_tokens} "
+          f"tokens)")
+
+
+def run_disagg(args) -> None:
+    """Prefill/decode disaggregation demo: the SAME mixed trace served
+    by a unified cluster and by a role-split one — a prefill pool runs
+    the prompt passes, exports finished prompts as deduped PackedKV, and
+    a decode pool adopts them straight into generation.  Greedy tokens
+    are bit-identical (asserted); only which engine does what changes."""
+    device = resolve_device(args.device)
+    cfg, params = _model(args, device)
+    rng = np.random.default_rng(4)
+    n = max(args.requests, 2)
+    prompts = [list(map(int, rng.integers(
+                   0, cfg.vocab_size, size=int(rng.integers(8, args.prompt)))))
+               for _ in range(n)]
+    max_len = args.prompt + args.tokens + 8
+
+    def serve(**pools):
+        lc = LiveCluster(n_nodes=args.nodes, n_slots=args.slots,
+                         max_len=max_len, device=device)
+        lc.register("m", cfg, params, n_blocks=4, **pools)
+        for i, p in enumerate(prompts):
+            lc.submit("m", p, args.tokens, req_id=i)
+        _sync(device)
+        t0 = time.perf_counter()
+        lc.drain_serving()
+        _sync(device)
+        return lc, time.perf_counter() - t0
+
+    cu, dt_u = serve(hot_nodes=[0, 1])
+    cd, dt_d = serve(prefill_nodes=[0], decode_nodes=[1])
+    ref, got = cu.results("m"), cd.results("m")
+    if got != ref:
+        raise AssertionError("disagg diverged from unified greedy tokens")
+    sv = cd.serving["m"]
+    pre, dec = sv.prefills[0], sv.locals_[1]
+    by_choice = {c: sum(1 for d in cd.handoff_log if d.chosen == c)
+                 for c in ("transfer", "recompute", "fresh")}
+    priced = sum(d.payload_bytes for d in cd.handoff_log)
+    total = sum(len(v) for v in got.values())
+    print(f"arch={cfg.arch_id} d_model={cfg.d_model} dtype={args.dtype} "
+          f"disagg: {n} requests -> {total} tokens, bit-equal to unified "
+          f"(unified {dt_u:.3f}s, disagg {dt_d:.3f}s wall on "
+          f"{device_name(device)})")
+    print(f"  prefill pool node 0: prefills={pre.stats['prefills']} "
+          f"exported={pre.stats['exported']} "
+          f"decode_ticks={pre.stats['decode_ticks']}")
+    print(f"  decode pool  node 1: adopted={dec.stats['adopted']} "
+          f"decode_ticks={dec.stats['decode_ticks']} "
+          f"admitted={dec.stats['admitted']}")
+    print(f"  wire: {len(cd.handoff_log)} handoffs priced "
+          f"({by_choice['transfer']} transfer / "
+          f"{by_choice['recompute']} recompute / "
+          f"{by_choice['fresh']} fresh), {priced/1e3:.1f} kB packed KV "
+          f"offered")
+
+
+def run_overload(args) -> None:
+    """Overload-survival demo: a sustained 3× mixed-class overload on
+    ONE fixed node (scale-out cannot arrive in time — degradation order
+    IS the outcome), served twice.  FCFS admits in arrival order and
+    collapses for everyone; the survival stack (strict-priority
+    admission + per-class page quotas + page-granular preemption over
+    the PackedKV wire + explicit shedding with retry-after hints) keeps
+    the interactive class fast and whole while batch work is parked to
+    the host tier or shed — every decision in the audit log.  The JAX
+    demo fixes ``d_model`` 64; here the model is ``--arch`` at full
+    width unless ``--d-model`` reduces it (the trace and every printed
+    time are on the simulated clock, which does not depend on the
+    width)."""
+    device = resolve_device(args.device)
+    cfg, params = _model(args, device)
+    quotas = {"interactive": PageQuota(reserved_frac=0.25),
+              "batch": PageQuota(ceiling_frac=0.6)}
+    # 1 node × 2 slots at 0.002 s/tick ≈ 140 rps of real capacity
+    trace = overload_trace(model="m", capacity_rps=140.0, overload=3.0,
+                           duration=0.3, prompt_len=8, out_tokens=6,
+                           seed=5)
+    conditions = {
+        "fcfs collapse": dict(admission=AdmissionPolicy()),
+        "survival stack": dict(
+            admission=StrictPriorityPolicy(quotas=quotas),
+            preemption=True, shed_limit=4, max_park_ticks=400),
+    }
+    print(f"sustained 3x overload: {len(trace)} mixed-class requests "
+          f"over {max(r.t_arrive for r in trace):.2f}s (simulated clock), "
+          f"1 node / 2 slots, arch={cfg.arch_id} d_model={cfg.d_model}\n")
+    for name, cond in conditions.items():
+        lc = LiveCluster(n_nodes=1, n_slots=2, max_len=48, page_size=16,
+                         device=device, **cond)
+        lc.register("m", cfg, params, n_blocks=2, hot_nodes=[0])
+        asc = Autoscaler(AutoscalerConfig(cooldown_up=1e9, keepalive=1e9,
+                                          shed_high=0.2))
+        _sync(device)
+        t0 = time.perf_counter()
+        log = lc.replay(trace, autoscaler=asc, tick_seconds=0.002,
+                        max_ticks=500_000)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        s = log.summary()
+        by = log.by_class()
+        good = {c: sum(1 for m in ms if m.t_finish is not None) / len(ms)
+                for c, ms in by.items()}
+        print(f"{name:15s} interactive "
+              f"p99={s['ttft_p99_interactive']*1e3:7.1f}ms "
+              f"goodput={good.get('interactive', 1.0):.2f}   "
+              f"batch goodput={good.get('batch', 1.0):.2f} (simulated "
+              f"clock); {dt:.3f}s wall on {device_name(device)}")
+        if "survival" in name:
+            kinds = {}
+            for e in lc.audit_log:
+                kinds[e.kind] = kinds.get(e.kind, 0) + 1
+            print(f"{'':15s} audit: " + ", ".join(
+                f"{k}={n}" for k, n in sorted(kinds.items())))
+            for e in lc.audit_log[:4]:
+                extra = (f" retry_after={e.retry_after:.0f} ticks"
+                         if e.kind == "shed" else "")
+                print(f"{'':15s}   t={e.t*1e3:6.1f}ms (simulated clock) "
+                      f"{e.kind:8s} req {e.req_id}: {e.detail}{extra}")
+            print(f"{'':15s}   ... ({len(lc.audit_log)} audit events; "
+                  f"degradation lands on the lowest class first)")
+
+
 def run_coldstart(args) -> None:
     """Scale-to-zero cold-start demo: a model registered with NO
     placement at all takes a cold burst, idles through a probe-punctuated
@@ -337,7 +534,7 @@ def run_sim(args) -> None:
               f"gpu_time={res.gpu_seconds:8.1f}s (simulated clock)")
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching engine on a mixed-length trace "
@@ -347,6 +544,16 @@ def main() -> None:
     ap.add_argument("--autoscale", action="store_true",
                     help="closed-loop trace replay: the autoscaler drives "
                          "scale-up/EWL/scale-down on the live cluster")
+    ap.add_argument("--slo", action="store_true",
+                    help="mixed-SLO-class demo: FCFS+independent vs "
+                         "EDF+placement-arbiter on the same live trace")
+    ap.add_argument("--disagg", action="store_true",
+                    help="prefill/decode disaggregation demo: role-split "
+                         "pools on the PackedKV wire vs unified serving")
+    ap.add_argument("--overload", action="store_true",
+                    help="overload-survival demo: preemption + page "
+                         "quotas + shedding vs FCFS collapse under a "
+                         "sustained 3x mixed-class overload")
     ap.add_argument("--coldstart", action="store_true",
                     help="scale-to-zero cold start: SSD park + pipelined "
                          "restore + persistent compile cache vs the naive "
@@ -370,11 +577,17 @@ def main() -> None:
                     help="the simulated model of --sim")
     ap.add_argument("--rps", type=float, default=50.0)
     ap.add_argument("--duration", type=float, default=5.0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.sim:
         run_sim(args)
     elif args.coldstart:
         run_coldstart(args)
+    elif args.overload:
+        run_overload(args)
+    elif args.disagg:
+        run_disagg(args)
+    elif args.slo:
+        run_slo(args)
     elif args.autoscale:
         run_autoscale(args)
     elif args.live:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention, paged_decode_step
 from repro_torch.kernels import decode_attention as decode_attention_kernel
+from repro_torch.kernels.ref import upcast
 
 Params = Dict[str, Any]
 
@@ -78,14 +79,14 @@ def init_norm(cfg, dtype, device):
 
 
 def apply_norm(p, x, cfg):
-    xf = x.float()
+    xf = upcast(x)
     if cfg.norm == "rms":
         y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + cfg.norm_eps)
-        return (y * p["scale"].float()).to(x.dtype)
+        return (y * upcast(p["scale"])).to(x.dtype)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    return (y * upcast(p["scale"]) + upcast(p["bias"])).to(x.dtype)
 
 
 # ---------------------------------------------------------------------- RoPE
@@ -160,7 +161,7 @@ def _sdpa(q, k, v, mask, cfg):
     kv = k.shape[2]
     g = H // kv
     qg = q.reshape(B, Sq, kv, g, dh) / math.sqrt(dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    s = torch.einsum("bqkgd,bskd->bkgqs", upcast(qg), upcast(k))
     s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)

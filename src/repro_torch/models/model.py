@@ -46,7 +46,8 @@ which a CUDA graph can hold.
 API:
   init_params(cfg, seed, dtype, device)             -> params
   forward(cfg, params, batch, build_cache=..., cache_len=..., moe_cf=...)
-        -> {"logits", "aux", "kv"?}
+        -> {"logits", "aux", "kv"?}               (no gradient recorded)
+  train_forward(cfg, params, batch, moe_cf=...)    -> {"logits", "aux"}
   decode_step(cfg, params, cache, tokens, positions) -> (logits, cache)
   decode_step_inplace(cfg, params, cache, tokens)   -> logits (in place)
   init_cache(cfg, n_slots, max_len, ...)            -> zeroed striped cache
@@ -58,11 +59,13 @@ API:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -310,7 +313,37 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     ``last_only``: the engines read no other row, and at a 256k vocabulary
     the full tensor is gigabytes) plus, with ``build_cache``, "kv": per
     layer the ``_apply_layer_full`` state.  ``kernel_impl``: see
-    ``models.layers``."""
+    ``models.layers``.  No gradient is recorded: ``train_forward`` is the
+    same computation with one."""
+    return _forward(cfg, params, batch, build_cache=build_cache,
+                    cache_len=cache_len, moe_cf=moe_cf,
+                    kernel_impl=kernel_impl, last_only=last_only)
+
+
+def train_forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+                  *, moe_cf=1.25) -> Dict[str, Any]:
+    """``forward`` with gradients, for training: the plain path
+    (``kernel_impl="plain"``: the CUDA kernels have no backward, and the
+    JAX package trains through its XLA attention and scans, not through
+    its Pallas kernels), MoE layers in the static form at capacity factor
+    ``moe_cf`` with their ``aux``.  Each decoder layer is rematerialised
+    in the backward pass (``torch.utils.checkpoint.checkpoint``, the
+    counterpart of the JAX package's ``jax.checkpoint`` over the trunk),
+    which changes no value.  Returns {"logits", "aux"}."""
+    return _forward(cfg, params, batch, moe_cf=moe_cf, kernel_impl="plain",
+                    remat=True)
+
+
+def _without_state(layer, x):
+    """(x, aux) of ``layer(x)``: a rematerialised layer keeps no state."""
+    x, _, aux = layer(x)
+    return x, aux
+
+
+def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+             build_cache: bool = False, cache_len: Optional[int] = None,
+             moe_cf=1.25, kernel_impl: str = "kernel",
+             last_only: bool = False, remat: bool = False):
     tokens = batch["tokens"]
     B, S = tokens.shape[0], n_positions(cfg, batch)
     patches = batch.get("patches") if cfg.n_patches else None
@@ -321,13 +354,18 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv: List[Any] = []
     for lp, entry in zip(params["layers"], _entries(cfg)):
-        x, state, a = _apply_layer_full(
-            lp, x, cfg, entry, positions, kernel_impl, enc_out=enc_out,
+        layer = functools.partial(
+            _apply_layer_full, lp, cfg=cfg, entry=entry,
+            positions=positions, kernel_impl=kernel_impl, enc_out=enc_out,
             cache_len=cache_len or S, moe_cf=moe_cf)
+        if remat:
+            x, a = checkpoint(_without_state, layer, x, use_reentrant=False)
+        else:
+            x, state, a = layer(x)
+            if build_cache:
+                kv.append(state)
         if a is not None:
             aux = aux + a
-        if build_cache:
-            kv.append(state)
     if last_only:
         x = x[:, -1:]
     out: Dict[str, Any] = {"logits": _unembed(cfg, params, x), "aux": aux}

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import upcast
 from repro_torch.models.layers import dense_init
 
 
@@ -72,7 +73,7 @@ def capacity(tk: int, E: int, cf) -> int:
 
 def route(p, xt, cfg):
     """(probs (T,E) fp32, gate (T,k) fp32 renormalised, eid (T,k) int64)."""
-    logits = (xt @ p["router"]).float()
+    logits = upcast(xt @ p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate, eid = torch.topk(probs, cfg.top_k, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rglru_scan
-from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.kernels.ref import acc_dtype, rglru_scan_ref, upcast
 from repro_torch.models.layers import dense_init
 
 _C = 8.0
@@ -43,7 +43,8 @@ def init_rec(cfg, gen, dtype, device):
 
 def init_rec_state(cfg, batch, dtype, device):
     d = cfg.d_model
-    return {"h": torch.zeros((batch, d), dtype=torch.float32, device=device),
+    return {"h": torch.zeros((batch, d), dtype=acc_dtype(dtype),
+                             device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, d), dtype=dtype,
                                 device=device)}
 
@@ -58,12 +59,12 @@ def _causal_conv(w, u, conv_state):
 
 
 def _gates(p, u_conv):
-    i = torch.sigmoid((u_conv @ p["w_i"]).float())
-    r = torch.sigmoid((u_conv @ p["w_a"]).float())
-    log_a = -_C * F.softplus(p["lam"].float()) * r             # (…, d), ≤ 0
+    i = torch.sigmoid(upcast(u_conv @ p["w_i"]))
+    r = torch.sigmoid(upcast(u_conv @ p["w_a"]))
+    log_a = -_C * F.softplus(upcast(p["lam"])) * r         # (…, d), ≤ 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return a, beta * i * u_conv.float()
+    return a, beta * i * upcast(u_conv)
 
 
 def _gelu(x):
@@ -82,8 +83,8 @@ def apply_rec(p, x, cfg, state: Optional[dict] = None, *,
     u_conv, conv_state = _causal_conv(p["conv"], u, state["conv"])
     a, b = _gates(p, u_conv)                             # (B,S,d) fp32 each
     scan = rglru_scan if kernel_impl == "kernel" else rglru_scan_ref
-    h = scan(a, b, state["h"].float())                   # (B,S,d) fp32
-    y = _gelu((x @ p["w_y"]).float())
+    h = scan(a, b, upcast(state["h"]))                   # (B,S,d) fp32
+    y = _gelu(upcast(x @ p["w_y"]))
     out = (y * h).to(x.dtype) @ p["w_out"]
     return out, {"h": h[:, -1], "conv": conv_state}
 

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import mlstm_chunkwise
 from repro_torch.kernels.ref import NEG_INF as NEG
-from repro_torch.kernels.ref import mlstm_chunkwise_ref
+from repro_torch.kernels.ref import acc_dtype, mlstm_chunkwise_ref, upcast
 from repro_torch.models.layers import const, dense_init
 from repro_torch.models.recurrent import (_causal_conv, _gelu,
                                            write_state)
@@ -133,7 +133,7 @@ def _mlstm_qkvif(p, x, cfg, conv_state):
     k = torch.einsum("bshd,hde->bhse", ch, p["wk"]) / const(
         math.sqrt(dh), ch.dtype, ch.device)
     v = torch.einsum("bshd,hde->bhse", uh, p["wv"])
-    cf = c.float()
+    cf = upcast(c)
     i_pre = (cf @ p["w_i"] + p["b_i"]).transpose(1, 2)
     f_pre = (cf @ p["w_f"] + p["b_f"]).transpose(1, 2)
     return q, k, v, i_pre, f_pre, z, conv_state
@@ -142,9 +142,9 @@ def _mlstm_qkvif(p, x, cfg, conv_state):
 def _headnorm(h, scale, H):
     """Per-head RMS norm over dh (eps 1e-6). h: (B,S,di)."""
     B, S, di = h.shape
-    hh = h.reshape(B, S, H, di // H).float()
+    hh = upcast(h.reshape(B, S, H, di // H))
     hh = hh * torch.rsqrt((hh * hh).mean(-1, keepdim=True) + 1e-6)
-    return (hh.reshape(B, S, di) * scale.float()).to(h.dtype)
+    return (hh.reshape(B, S, di) * upcast(scale)).to(h.dtype)
 
 
 def _mlstm_out(p, h, z, cfg):
@@ -203,10 +203,10 @@ def init_slstm(cfg, gen, dtype, device):
 
 
 def init_slstm_state(cfg, batch, dtype, device):
-    d = cfg.d_model
-    z = lambda: torch.zeros((batch, d), dtype=_F32, device=device)  # noqa
+    d, acc = cfg.d_model, acc_dtype(dtype)
+    z = lambda: torch.zeros((batch, d), dtype=acc, device=device)  # noqa
     return {"c": z(), "n": z() + 1e-6, "h": z(),
-            "m": torch.full((batch, d), NEG, dtype=_F32, device=device)}
+            "m": torch.full((batch, d), NEG, dtype=acc, device=device)}
 
 
 def _slstm_step(p, pre_t, st, H):
@@ -229,7 +229,7 @@ def _slstm_step(p, pre_t, st, H):
 def _slstm_pre(p, x):
     """Input pre-activations (4,B,S,d): a product in the activation dtype,
     cast to fp32 afterwards, as in JAX."""
-    return torch.einsum("bsd,gde->gbse", x, p["w"]).float()
+    return upcast(torch.einsum("bsd,gde->gbse", x, p["w"]))
 
 
 def _slstm_out(p, h, x):

@@ -1410,3 +1410,20 @@ def test_coldstart_demo_on_card(cuda, capsys):
                                      requests=4, seed=0))
     out = capsys.readouterr().out
     assert "bit-equal" in out and "on NVIDIA" in out
+
+
+@pytest.mark.gpu
+def test_kernel_wrapper_refuses_grad_inputs(cuda):
+    """A CUDA kernel has no backward: its wrapper raises on an input that
+    requires a grad while grad mode is on, instead of returning an output
+    detached from it; under ``no_grad`` it launches as usual."""
+    q = torch.randn(1, 4, 16, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 16, 64, device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, k)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        out = flash_attention(q, k, k)
+    assert flash_attention.launches == before + 1
+    assert not out.requires_grad
