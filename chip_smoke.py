@@ -133,7 +133,19 @@ Phases (any failure exits non-zero, with no result line):
      ``launch/serve.py`` --slo, --disagg and --overload at full width in
      bf16 (paths ``serve-slo``, ``serve-disagg``, ``serve-overload``,
      paged-step and flash launches nonzero), then every
-     ``examples/torch_*.py`` at its defaults.
+     ``examples/torch_*.py`` at its defaults;
+ 14. the dry-run and fit stack (``launch.dryrun``, no device): (a)
+     ``run_one`` at full width on the 16x16 placeholder mesh for every
+     arch on decode_32k and long_500k (skipped exactly where
+     ``specs.applicable`` skips, as in JAX), qwen2.5-3b and qwen2-moe on
+     train_4k and prefill_32k, their prefill also under ``tuned-moe``,
+     and one ``dryrun_ewl`` record, each printed on a line of its own
+     (any error fails); (b) the fit check: on a one-rank mesh the
+     dry-run predicts the peak device memory of 13a's fp32 training step
+     (2 x 512) and of a bf16 ``decode_step`` of 8 slots at max_len
+     32768, each then measured on the card (``max_memory_allocated``)
+     and held to the prediction within FIT_TOL; (c) the card's bf16
+     matmul rate and copy bandwidth beside the dry-run's constants.
 Each path is driven with every launch count set to 0 just before it and
 read just after; a graph replay adds the launches its capture recorded.
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
@@ -3111,6 +3123,160 @@ def serve_modes_and_examples(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ 14: dry-run and fit check
+DRYRUN_ARCHS = ("starcoder2-3b", "whisper-large-v3", "recurrentgemma-2b",
+                "starcoder2-15b", "pixtral-12b", "qwen2.5-3b",
+                "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
+                "stablelm-1.6b", "xlstm-1.3b", "llama2-7b")
+# (arch, shape, preset) beyond every arch's decode_32k and long_500k
+DRYRUN_MORE = (("qwen2.5-3b", "train_4k", None),
+               ("qwen2.5-3b", "prefill_32k", None),
+               ("qwen2-moe-a2.7b", "train_4k", None),
+               ("qwen2-moe-a2.7b", "prefill_32k", None),
+               ("qwen2.5-3b", "prefill_32k", "tuned-moe"),
+               ("qwen2-moe-a2.7b", "prefill_32k", "tuned-moe"))
+FIT_TOL = 0.10              # predicted vs measured peak, relative
+FIT_DECODE = (8, 32_768)    # slots, max_len of the bf16 decode fit check
+
+
+def dryrun_records() -> None:
+    """14a: ``launch.dryrun.run_one`` at full width on the 16x16
+    placeholder mesh (no device): every arch on decode_32k and long_500k
+    (skipped exactly where ``specs.applicable`` says, as in JAX), qwen2.5-3b
+    and qwen2-moe on train_4k and prefill_32k, their prefill also under
+    ``tuned-moe``, then one ``dryrun_ewl`` record at its defaults.  Each
+    record is printed on a line of its own; an error fails the run."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import PRESETS, run_one
+    from repro_torch.launch.dryrun_ewl import run_ewl
+    from repro_torch.launch.specs import applicable
+    combos = [(a, s, None) for a in DRYRUN_ARCHS
+              for s in ("decode_32k", "long_500k")] + list(DRYRUN_MORE)
+    for arch, shape, preset in combos:
+        t0 = time.perf_counter()
+        rec = run_one(arch, shape, verbose=False,
+                      opts=PRESETS[preset] if preset else None,
+                      tag=f"+{preset}" if preset else "")
+        rec.pop("traceback", None)
+        log("[dryrun] " + json.dumps(rec))
+        want = "ok" if applicable(get_config(arch), SHAPES[shape])[0] \
+            else "skipped"
+        if rec["status"] != want:
+            raise AssertionError(f"dry-run {arch} x {shape} ({preset}): "
+                                 f"{rec['status']} {rec.get('error')}")
+        if want == "ok":
+            m = rec["memory"]
+            gib = (m["argument_size_in_bytes"]
+                   + m["temp_size_in_bytes"]) / 2 ** 30
+            log(f"[dryrun] {arch} x {shape}{rec['mesh'][8:]}: "
+                f"{gib:.2f} GiB a device, flops {rec['hlo_flops']:.4g},"
+                f" collectives {sum(rec['collective_bytes'].values()):.4g} B"
+                f" -> {rec['bottleneck']} (trace "
+                f"{time.perf_counter() - t0:.1f} s)")
+    rec = run_ewl(verbose=False)
+    log("[dryrun] " + json.dumps(rec))
+
+
+def fit_check(seed: int) -> None:
+    """14b: the dry-run on a one-rank mesh predicts a step's peak device
+    memory (argument bytes + the peak of live intermediates); the same
+    step then runs on the card from a clean allocator and its
+    ``max_memory_allocated`` (less what earlier phases still hold) is
+    held to the prediction within FIT_TOL: phase 13a's fp32 qwen2.5-3b
+    training step at 2 x 512 tokens, and a bf16 qwen2.5-3b
+    ``decode_step`` of 8 slots at max_len 32768 (the kernel path)."""
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.mesh import placeholder_mesh
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.training import AdamWConfig, data_iterator, \
+        init_opt_state
+    from repro_torch.training.train_loop import make_train_step, to_device
+    mesh = placeholder_mesh((1, 1), ("data", "model"))
+    cfg = get_config(TRAIN_ARCH)
+    B, L = FIT_DECODE
+
+    def predict(shape, dtype):
+        rec = run_one(TRAIN_ARCH, shape.name, mesh=mesh, shape=shape,
+                      dtype=dtype, verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"fit dry-run {shape}: {rec.get('error')}")
+        m = rec["memory"]
+        return m["argument_size_in_bytes"] + m["temp_size_in_bytes"], m
+
+    def measure(run):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.empty_cache()
+        return peak
+
+    def train():
+        params = init_params(cfg, seed=seed, device="cuda")
+        opt = init_opt_state(params)
+        batch = to_device(next(data_iterator(cfg, TRAIN_B, TRAIN_S,
+                                             seed=seed)), "cuda")
+        make_train_step(cfg, AdamWConfig())(params, opt, batch)
+
+    def decode():
+        params = init_params(cfg, seed=seed, dtype=torch.bfloat16,
+                             device="cuda")
+        cache = init_cache(cfg, B, L, dtype=torch.bfloat16, device="cuda")
+        pos = torch.full((B,), L // 2, dtype=torch.int32, device="cuda")
+        tok = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        decode_step(cfg, params, cache, tok, pos)
+
+    for what, shape, dtype, run in (
+            ("train fp32 2x512", InputShape("train_fit", TRAIN_S, TRAIN_B,
+                                            "train"), torch.float32, train),
+            (f"decode bf16 {B} slots x {L}",
+             InputShape("decode_fit", L, B, "decode"), torch.bfloat16,
+             decode)):
+        t0 = time.perf_counter()
+        pred, m = predict(shape, dtype)
+        t1 = time.perf_counter()
+        got = measure(run)
+        ratio = pred / got
+        log(f"[fit] {TRAIN_ARCH} {what}: predicted {pred / 1e9:.3f} GB "
+            f"(arguments {m['argument_size_in_bytes'] / 1e9:.3f} + temp "
+            f"{m['temp_size_in_bytes'] / 1e9:.3f}; dry-run {t1 - t0:.1f} s)"
+            f", measured max_memory_allocated {got / 1e9:.3f} GB: "
+            f"ratio {ratio:.4f} on {smi()}")
+        if abs(ratio - 1) > FIT_TOL:
+            raise AssertionError(f"fit {what}: predicted {pred} vs measured "
+                                 f"{got} bytes ({ratio:.4f})")
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def card_rates() -> None:
+    """14c: the card's bf16 matmul rate (8192^3, CUDA events) and copy
+    bandwidth (1 GiB read + 1 GiB written) beside the dry-run's
+    constants (data-sheet peaks)."""
+    import torch
+    from repro_torch.launch.dryrun import HBM_BW, LINK_BW, PEAK_FLOPS
+    n = 8192
+    a = torch.randn((n, n), dtype=torch.bfloat16, device="cuda")
+    b = torch.randn((n, n), dtype=torch.bfloat16, device="cuda")
+    mm = time_ms(lambda: a @ b, iters=20)
+    x = torch.empty(2 ** 29, dtype=torch.bfloat16, device="cuda")
+    y = torch.empty_like(x)
+    cp = time_ms(lambda: y.copy_(x), iters=20)
+    rate = 2 * n ** 3 / (mm / 1e3)
+    bw = 2 * x.numel() * 2 / (cp / 1e3)
+    log(f"[rates] bf16 matmul {n}^3: {mm:.4f} ms, {rate / 1e12:.1f} TFLOP/s "
+        f"(dry-run constant {PEAK_FLOPS / 1e12:.0f}); copy 1 GiB: "
+        f"{cp:.4f} ms, {bw / 1e12:.3f} TB/s (constant {HBM_BW / 1e12:.2f}); "
+        f"link {LINK_BW / 1e9:.0f} GB/s not measured (one card); {smi()}")
+    del a, b, x, y
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3227,6 +3393,12 @@ def main() -> int:
     serve_modes_and_examples(args.seed)
     log(f"[phase] 13 (training, --slo/--disagg/--overload, examples) in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_records()
+    fit_check(args.seed)
+    card_rates()
+    log(f"[phase] 14 (dry-run on placeholder ranks, fit check, card rates) "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"paged_decode_step": (csrc + "paged_decode_step.cu",

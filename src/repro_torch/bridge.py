@@ -15,7 +15,9 @@ Recurrent layers' ``rec``, ``mlstm`` and ``slstm`` dicts come over like
 the rest, except for the leaves that the JAX package makes fp32 in a bf16
 model, which keep their fp32 under any ``dtype``: the RG-LRU ``lam``, the
 mLSTM gate weights ``w_i``, ``w_f``, ``b_i``, ``b_f`` and the sLSTM
-recurrence ``r`` and bias ``b``.
+recurrence ``r`` and bias ``b``.  A JAX decode cache (``trunk`` stacked the
+same way, ``rem``, ``pos``) maps onto the port's per-layer list by the
+same correspondence (``cache_from_jax``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,20 @@ def _tree(x, fn, path=()):
     return fn(x, path)
 
 
+def _unstack(stacked, n, conv):
+    return [_tree(stacked, lambda a, path, r=r: conv(np.asarray(a)[r], path))
+            for r in range(n)]
+
+
+def _layers(cfg, tree, conv):
+    """The per-layer list of a JAX tree's stacked ``trunk`` and unrolled
+    ``rem`` (parameters and decode caches share the layout)."""
+    reps, plen = cfg.n_pattern_reps, cfg.pattern_len
+    per_pos = [_unstack(tree["trunk"][pi], reps, conv) for pi in range(plen)]
+    layers = [per_pos[pi][rep] for rep in range(reps) for pi in range(plen)]
+    return layers + [_tree(lp, conv) for lp in tree["rem"]]
+
+
 def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
                     dtype=None) -> Dict[str, Any]:
     """Port-layout parameters from numpy copies of the JAX package's
@@ -60,16 +76,8 @@ def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
     def conv(a, path=()):
         return _tensor(a, dev, None if path[-2:] in _KEEP_DTYPE else dtype)
 
-    def unstack(stacked, n):
-        return [_tree(stacked, lambda a, path, r=r: conv(np.asarray(a)[r],
-                                                         path))
-                for r in range(n)]
-
-    reps, plen = cfg.n_pattern_reps, cfg.pattern_len
-    per_pos = [unstack(jax_params["trunk"][pi], reps) for pi in range(plen)]
-    layers = [per_pos[pi][rep] for rep in range(reps) for pi in range(plen)]
-    layers += [_tree(lp, conv) for lp in jax_params["rem"]]
-    out = {"embed": conv(jax_params["embed"]), "layers": layers,
+    out = {"embed": conv(jax_params["embed"]),
+           "layers": _layers(cfg, jax_params, conv),
            "final_norm": _tree(jax_params["final_norm"], conv)}
     for name in ("head", "pos_embed", "patch_proj"):
         if name in jax_params:
@@ -77,6 +85,24 @@ def params_from_jax(cfg, jax_params: Dict[str, Any], *, device=None,
     if "enc" in jax_params:
         enc = jax_params["enc"]
         out["enc"] = {"pos": conv(enc["pos"]),
-                      "layers": unstack(enc["layers"], cfg.n_enc_layers),
+                      "layers": _unstack(enc["layers"], cfg.n_enc_layers,
+                                         conv),
                       "final_norm": _tree(enc["final_norm"], conv)}
     return out
+
+
+def cache_from_jax(cfg, jax_cache: Dict[str, Any], *, device=None,
+                   dtype=None) -> Dict[str, Any]:
+    """The port's striped decode cache (``models.init_cache``'s layout:
+    ``{"layers": [...], "pos"}``) from numpy copies of a JAX one
+    (``repro.models.init_cache``: stacked ``trunk``, ``rem``, ``pos``).
+    ``dtype`` casts every floating leaf; None keeps the source dtype."""
+    dev = resolve_device(device)
+
+    def conv(a, path=()):
+        a = np.asarray(a)
+        keep = a.dtype.kind in "iub"
+        return _tensor(a, dev, None if keep else dtype)
+
+    return {"layers": _layers(cfg, jax_cache, conv),
+            "pos": conv(jax_cache["pos"])}

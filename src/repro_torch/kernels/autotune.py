@@ -44,6 +44,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels.compile_cache import (backend_kind, cache_file,
                                                load_table, store_table)
 
@@ -97,8 +98,7 @@ def _default_measure(cfg, n_slots: int, max_len: int, page_size: int,
     from repro_torch.kernels import graph, paged_decode_step
     from repro_torch.models.cache_ops import pages_for
 
-    dev = torch.device(device if device is not None else
-                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    dev = resolve_device(device)
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     MP = pages_for(max_len, page_size)
     P = n_slots * MP + 1                     # + trash page
@@ -155,7 +155,11 @@ def autotune_paged_decode(cfg, *, n_slots: int, max_len: int,
     """Best page size for this engine geometry and activation ``dtype`` on
     ``device`` (None: the port's default device), from the disk cache
     when present (unless ``force``), measured otherwise.  ``measure(cfg,
-    n_slots, max_len, page_size, attn_impl)`` returns seconds."""
+    n_slots, max_len, page_size, attn_impl)`` returns seconds.  Without
+    ``measure`` the device is resolved first (``resolve_device``): no
+    device and no GPU raises before anything is keyed or timed."""
+    if measure is None:
+        device = resolve_device(device)
     path = cache_file or cache_path(device)
     key = autotune_key(cfg, n_slots, max_len, attn_impl, shared, device,
                        dtype)

@@ -115,6 +115,12 @@ def _expert(rows, w_gate, w_in, w_out):
     return (F.silu(rows @ w_gate) * (rows @ w_in)) @ w_out
 
 
+def _bank_products(buf, p):
+    """The static form's expert products: buf (E, C, d) -> (E, C, d)."""
+    return torch.bmm(F.silu(torch.bmm(buf, p["w_gate"]))
+                     * torch.bmm(buf, p["w_in"]), p["w_out"])
+
+
 def apply_moe(p, x, cfg, *, capacity_factor: Optional[float] = 1.25,
               grouped: bool = False, need_aux: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -160,8 +166,7 @@ def apply_moe(p, x, cfg, *, capacity_factor: Optional[float] = 1.25,
         buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
         buf[sorted_eid, slot_c] = xt[tok_of]
         buf = buf[:, :C]
-        out_e = torch.bmm(F.silu(torch.bmm(buf, p["w_gate"]))
-                          * torch.bmm(buf, p["w_in"]), p["w_out"])
+        out_e = _bank_products(buf, p)
         back = torch.empty((Tk, d), dtype=x.dtype, device=x.device)
         back[order] = out_e[sorted_eid, torch.clamp(slot, max=C - 1)]
         kept = torch.empty_like(keep)

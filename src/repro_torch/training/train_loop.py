@@ -67,17 +67,23 @@ def value_and_grad(cfg: ModelConfig, params, batch: Dict):
     return (loss.detach(), met), grads
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    grad_constraint=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients, then one AdamW update in
     place, weight decay masked as the JAX package's (``decay_mask``,
-    derived at the first call)."""
+    derived at the first call).  ``grad_constraint`` (the JAX package's
+    ``grad_shardings``): a function applied to the gradient tree before
+    the update, e.g. a redistribution of sharded gradients to their
+    parameters' placements (``launch.specs``)."""
     decay = {}
 
     def train_step(params, opt_state, batch):
         if not decay:
             decay["mask"] = decay_mask(cfg, params)
         (loss, met), grads = value_and_grad(cfg, params, batch)
+        if grad_constraint is not None:
+            grads = grad_constraint(grads)
         params, opt_state, opt_met = adamw_update(
             opt_cfg, params, grads, opt_state, decay=decay["mask"])
         met = dict(met, loss=loss, **opt_met)
