@@ -24,6 +24,14 @@
       of the same weights: last-position logit error and argmax agreement
       of the kernel path and of the bf16 plain path.
 
+  python3 chip_compare.py cluster DIR
+      ``chip_smoke.py``'s live cluster of phase 10a (qwen2.5-3b and
+      stablelm-1.6b at full width and depth, bf16, 24 requests), each
+      checkout's own, run from DIR and from this checkout in fresh
+      processes in the order DIR, this, this, DIR; prints each run's wall
+      time and wall ms per cluster tick, and this checkout's prefill
+      graphs.
+
 All need a CUDA device and build the kernels from each checkout's
 sources.  The helpers (inputs, timing) are this checkout's
 ``chip_smoke.py``.
@@ -371,6 +379,54 @@ def prefill(other: Path, n: int) -> None:
           f"of {n}", flush=True)
 
 
+# One checkout's live cluster: its own chip_smoke.py's phase 10a, run
+# from the checkout (the working directory); the log goes to stdout.
+CLUSTER = r"""
+import sys
+sys.path[:0] = [".", "src"]
+import chip_smoke as c
+from repro_torch.kernels import _build
+_build.build_all(["paged_decode_step", "flash_attention"])
+c.serve_cluster_live(0)
+"""
+TICK = re.compile(r"^\[cluster\] 10a live: \d+ requests, \d+ tokens in "
+                  r"([0-9.]+) s wall;.*; ([0-9.]+) ms wall per tick")
+
+
+def cluster_once(tree: Path, label: str, logdir: Path):
+    """One fresh process of ``tree``'s phase 10a: (wall s, ms a tick)."""
+    proc = subprocess.run([sys.executable, "-c", CLUSTER], cwd=tree,
+                          capture_output=True, text=True)
+    (logdir / f"cluster_{label}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: phase 10a failed (rc "
+                           f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    m = next(filter(None, map(TICK.match, proc.stdout.splitlines())))
+    wall, tick = float(m.group(1)), float(m.group(2))
+    print(f"[cluster] {label}: {wall} s wall, {tick} ms a tick", flush=True)
+    for line in proc.stdout.splitlines():
+        if "prefill graphs captured" in line:
+            print(f"[cluster] {label}: {line}", flush=True)
+    return wall, tick
+
+
+def cluster(other: Path) -> None:
+    import chip_smoke as c
+    logdir = ROOT / "chiprun_out" / "compare"
+    logdir.mkdir(parents=True, exist_ok=True)
+    runs = {"other": [], "this": []}
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        runs[label].append(cluster_once(tree, f"{label}_"
+                                        f"{len(runs[label]) + 1}", logdir))
+    for label, rs in runs.items():
+        print(f"[cluster] {label} ({other.name if label == 'other' else 'this'}"
+              f"): wall {[w for w, _ in rs]} s, ms a tick "
+              f"{[t for _, t in rs]}, mean {sum(t for _, t in rs) / 2:.1f}",
+              flush=True)
+    print(c.smi(), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -382,6 +438,8 @@ def main() -> int:
     c = sub.add_parser("scan")
     c.add_argument("--tree", type=Path, default=None)
     c.add_argument("--chunks", default="")
+    k = sub.add_parser("cluster")
+    k.add_argument("other", type=Path)
     f = sub.add_parser("prefill")
     f.add_argument("other", type=Path)
     f.add_argument("-n", type=int, default=16)
@@ -401,6 +459,9 @@ def main() -> int:
         scan(args.tree and args.tree.resolve(), args.chunks)
     elif args.cmd == "serving":
         serving(args.other.resolve(), args.phases.split(","))
+    elif args.cmd == "cluster":
+        sys.path.insert(0, str(ROOT))
+        cluster(args.other.resolve())
     else:
         prefill(args.other.resolve(), args.n)
     return 0

@@ -72,7 +72,9 @@ Phases (any failure exits non-zero, with no result line):
      (every node's wire bytes equal the registry, one receiver per model
      unpacked bit-equal to its source, every request finished once with
      its budget, at least one adopted and none re-prefilled per model,
-     one tick with all eight engines profiled); (b) the ``--autoscale``
+     one tick with all eight engines profiled; the execution pipelines
+     eager by rule, each engine's prefill graphs printed); (b) the
+     ``--autoscale``
      shape, qwen2.5-3b from zero replicas under the autoscaler on the
      simulated clock, up from the host tier and down after its
      keep-alive, each scale-down freeing at least a replica's device
@@ -135,7 +137,8 @@ Phases (any failure exits non-zero, with no result line):
      paged-step and flash launches nonzero), then every
      ``examples/torch_*.py`` at its defaults;
  14. the dry-run and fit stack (``launch.dryrun``, no device): (a)
-     ``run_one`` at full width on the 16x16 placeholder mesh for every
+     ``run_one`` (four records at a time, each in a worker process of
+     its own) at full width on the 16x16 placeholder mesh for every
      arch on decode_32k and long_500k (skipped exactly where
      ``specs.applicable`` skips, as in JAX), qwen2.5-3b and qwen2-moe on
      train_4k and prefill_32k, their prefill also under ``tuned-moe``,
@@ -145,7 +148,31 @@ Phases (any failure exits non-zero, with no result line):
      (2 x 512) and of a bf16 ``decode_step`` of 8 slots at max_len
      32768, each then measured on the card (``max_memory_allocated``)
      and held to the prediction within FIT_TOL; (c) the card's bf16
-     matmul rate and copy bandwidth beside the dry-run's constants.
+     matmul rate and copy bandwidth beside the dry-run's constants;
+ 15. the compiled prefills (every engine above already prefills through
+     them: a bucket's first prefill eager, then captured, later ones
+     replayed; ``graph_note`` prints each bucket's capture seconds, pool
+     MiB and replays): (a) in fp32 at full width, qwen2.5-3b paged with
+     prefix sharing (fresh and suffix prefills) and striped,
+     recurrentgemma-2b and xlstm-1.3b paged, each through three engines
+     on one trace (captured; the same padded steps eager; the unpadded
+     steps): tick by tick the captured cache bitwise equal to the eager
+     one and within PAD_TOL (PAD_TOL_ARCH) of the unpadded one, launch
+     counts equal, first tokens equal; xlstm's state gap split by
+     ``padding_gap`` (the sLSTM input product at two row counts; the
+     padding held in fp64; the padded fp32 state held to the gap that
+     batching the prompt gives); pixtral-12b (depth 4, with patches) and
+     whisper-large-v3 (frames) on ``InferenceEngine`` (exact shapes,
+     unpadded), prefill and decode captured against eager and against a
+     direct ``forward``; (b) the bf16 burst of
+     ``profile_ticks`` twice on a fresh paged engine of qwen2.5-3b,
+     recurrentgemma-2b and xlstm-1.3b, wall, busy and idle share of
+     the first (capturing) and second (replaying) pass beside the same
+     burst with eager prefills (``EAGER_BURST``);
+     (c) ``InferenceEngine``'s decode tick at 4 x 512 eager vs replayed;
+     (d) the λPipe tick (4 stages, 2 microbatches, 8 x 512) eager vs
+     replayed, logits bitwise equal; the steps still eager on the card,
+     each by a stated rule, are printed (``EAGER_BY_RULE``).
 Each path is driven with every launch count set to 0 just before it and
 read just after; a graph replay adds the launches its capture recorded.
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
@@ -1198,7 +1225,8 @@ def serve_striped_dense(cfg, params, seed: int) -> None:
            {"flash_attention": N_LAYERS,
             "decode_attention": N_LAYERS * 31})
     log(f"[serve] qwen2.5-3b InferenceEngine: 4 x (512 prompt, 32 new) = "
-        f"128 tokens in {wall:.3f} s = {128 / wall:.1f} tok/s")
+        f"128 tokens in {wall:.3f} s = {128 / wall:.1f} tok/s; "
+        f"{prefill_note(eng)}")
     rng = np.random.default_rng(seed + 4)
     trace = [(list(map(int, rng.integers(0, cfg.vocab_size, int(n)))),
               int(m)) for n, m in zip(rng.integers(64, 1025, 6),
@@ -1223,26 +1251,28 @@ def serve_striped_dense(cfg, params, seed: int) -> None:
 
 
 def profile_ticks(eng, vocab: int, seed: int, label: str,
-                  prompt: int = 256) -> None:
+                  prompt: int = 256, first_id: int = 1000):
     """Where a serving tick's time goes: a short burst (8 requests,
     ``prompt`` prompt tokens, 24 new) under torch.profiler after the
     measured run; prints device-busy share of the wall time and the top
-    kernels."""
+    kernels.  Returns (wall s, device-busy s)."""
     import numpy as np
     rng = np.random.default_rng(seed + 7)
     for i in range(8):
         eng.submit(list(map(int, rng.integers(0, vocab, prompt))), 24,
-                   req_id=1000 + i)
+                   req_id=first_id + i)
     ticks0 = eng.stats["decode_ticks"]
-    profile_call(eng.run, f"{label} 8 requests x ({prompt} prompt, 24 new)",
-                 top=10)
+    out = profile_call(eng.run, f"{label} 8 requests x ({prompt} prompt, "
+                       f"24 new)", top=10)
     log(f"[profile] {label}: {eng.stats['decode_ticks'] - ticks0} decode "
         f"ticks in the profiled burst")
+    return out
 
 
-def profile_call(fn, label: str, top: int = 8) -> None:
+def profile_call(fn, label: str, top: int = 8):
     """One call of ``fn`` under torch.profiler: prints its wall time, the
-    device-busy share and the ``top`` device kernels."""
+    device-busy share and the ``top`` device kernels.  Returns (wall s,
+    device-busy s)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1265,6 +1295,7 @@ def profile_call(fn, label: str, top: int = 8) -> None:
     for t, key, count in sorted(rows, reverse=True)[:top]:
         log(f"[profile] {label}  {t / 1e3:10.3f} ms  {count:6d}x  "
             f"{key[:90]}")
+    return wall, busy
 
 
 def _leaves(tree):
@@ -1415,7 +1446,8 @@ def serve_hybrid(seed: int) -> None:
             "decode_attention": HYBRID_ATTN * 63})
     log(f"[serve] recurrentgemma-2b InferenceEngine: 8 x (1024 prompt, 64 "
         f"new) = 512 tokens in {wall:.3f} s = {512 / wall:.1f} tok/s "
-        f"(wall time incl. prefill); launches {counts}")
+        f"(wall time incl. prefill); launches {counts}; "
+        f"{prefill_note(eng)}")
     del eng, batch, out
     torch.cuda.empty_cache()
 
@@ -1543,7 +1575,7 @@ def serve_ssm(seed: int) -> None:
     expect("xlstm-1.3b static", counts, {"mlstm_chunkwise": SSM_MLSTM})
     log(f"[serve] xlstm-1.3b InferenceEngine: 4 x (1024 prompt, 32 new) = "
         f"128 tokens in {wall:.3f} s = {128 / wall:.1f} tok/s (wall time "
-        f"incl. prefill); launches {counts}")
+        f"incl. prefill); launches {counts}; {prefill_note(eng)}")
     del eng, batch, out
     torch.cuda.empty_cache()
 
@@ -1632,12 +1664,43 @@ def tick_ms(cfg, params, eng, n: int = 10):
 
 
 def graph_note(eng) -> str:
-    """The engine's decode graph: capture time, pool bytes, replays."""
+    """The engine's decode graph (capture time, pool bytes, replays) and
+    its prefill graphs (``prefill_note``)."""
     g = eng.decode_graph
     if g is None:
         raise AssertionError("the engine decoded without a captured graph")
     return (f"decode graph captured in {g.capture_s * 1e3:.1f} ms, pool "
-            f"{g.pool_bytes / 2**20:.1f} MiB, {g.replays} replays")
+            f"{g.pool_bytes / 2**20:.1f} MiB, {g.replays} replays; "
+            f"{prefill_note(eng)}")
+
+
+def prefill_note(eng) -> str:
+    """An engine's prefill graphs, per key: capture seconds (an eager-run
+    warm-up is not in it), the MiB its capture added to the shared pool,
+    replays.  Raises when a config that captures (no MoE) prefilled with
+    no graph: on the card every such prefill is a graph's warm-up or
+    replay."""
+    from repro_torch.models import has_moe
+    graphs = eng.prefill_graphs
+    if not graphs.capturing:
+        return ("prefill eager by rule (MoE: host read of expert counts)"
+                if has_moe(eng.cfg) else "prefill eager (no capture)")
+    if getattr(eng, "stats", {}).get("prefills", 1) and not len(graphs):
+        raise AssertionError("the engine prefilled without a captured graph")
+    return f"{len(graphs)} prefill graphs (" + "; ".join(
+        f"{_key_text(k)}: {s.capture_s:.2f} s, "
+        f"{s.pool_bytes / 2**20:.1f} MiB, {s.replays} replays"
+        for k, s in graphs.steps.items()) + ")"
+
+
+def _key_text(key) -> str:
+    """A prefill graph's key: "fresh/512" (kind/bucket) for the
+    continuous engines, "2x200+8" (batch x text + cache length past the
+    text) for ``InferenceEngine``."""
+    if isinstance(key[0], str):
+        return f"{key[0]}/{key[1]}"
+    B, S = key[1][1]
+    return f"{B}x{S}+{key[0] - S}"
 
 
 # ------------------------------------------------------------ phase 8
@@ -2195,6 +2258,15 @@ def serve_cluster_live(seed: int) -> None:
         + ", ".join(f"{g.capture_s * 1e3:.1f}" for g in graphs)
         + f" ms, pools {sum(g.pool_bytes for g in graphs) / 2**20:.1f} MiB"
         f" in all, {sum(g.replays for g in graphs)} replays")
+    served = [(m, node, e) for m, sv in lc.serving.items()
+              for node, e in sv.locals_.items() if e.stats["prefills"]]
+    cap = sum(st.capture_s for _, _, e in served
+              for st in e.prefill_graphs.steps.values())
+    log(f"[cluster] 10a live: the execution pipelines ran eagerly (by "
+        f"rule); prefill graphs captured in {cap:.2f} s in all (eager "
+        f"warm-ups not counted) of the {wall:.3f} s: " + "; ".join(
+            f"{m} node {node} {e.stats['prefills']} prefills, "
+            f"{prefill_note(e)}" for m, node, e in served))
     del lc
     gc.collect()
     torch.cuda.empty_cache()
@@ -2610,7 +2682,8 @@ def serve_static_family(cfg, params, batch, n_new: int, label: str,
     expect(label, counts, {"flash_attention": flash_per_prefill,
                            "decode_attention": cfg.n_layers * (n_new - 1)})
     log(f"[serve] {label}: {B} x {n_new} new = {B * n_new} tokens in "
-        f"{wall:.3f} s = {B * n_new / wall:.1f} tok/s; launches {counts}")
+        f"{wall:.3f} s = {B * n_new / wall:.1f} tok/s; launches {counts}; "
+        f"{prefill_note(eng)}")
 
 
 def tick_vs_bound(cfg, params, read: int, label: str, seed: int) -> None:
@@ -3139,25 +3212,48 @@ FIT_TOL = 0.10              # predicted vs measured peak, relative
 FIT_DECODE = (8, 32_768)    # slots, max_len of the bf16 decode fit check
 
 
-def dryrun_records() -> None:
+def _dryrun_record(combo):
+    """One 14a record in a worker process: (record, trace seconds).  The
+    fake process group is process-global, so each record runs alone in
+    its process, as the tests run it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.launch.dryrun import PRESETS, run_one
+    from repro_torch.launch.dryrun_ewl import run_ewl
+    t0 = time.perf_counter()
+    if combo is None:
+        rec = run_ewl(verbose=False)
+    else:
+        arch, shape, preset = combo
+        rec = run_one(arch, shape, verbose=False,
+                      opts=PRESETS[preset] if preset else None,
+                      tag=f"+{preset}" if preset else "")
+    rec.pop("traceback", None)
+    return rec, time.perf_counter() - t0
+
+
+def dryrun_records(combos=None, workers: int = 4) -> None:
     """14a: ``launch.dryrun.run_one`` at full width on the 16x16
     placeholder mesh (no device): every arch on decode_32k and long_500k
     (skipped exactly where ``specs.applicable`` says, as in JAX), qwen2.5-3b
     and qwen2-moe on train_4k and prefill_32k, their prefill also under
-    ``tuned-moe``, then one ``dryrun_ewl`` record at its defaults.  Each
-    record is printed on a line of its own; an error fails the run."""
+    ``tuned-moe``, then one ``dryrun_ewl`` record at its defaults; the
+    records are traced in ``workers`` processes at once (host CPU work,
+    while the card idles; they run alone in their phase).  Each record
+    is printed on a line of its own, in order; an error fails the run."""
+    import concurrent.futures
+    import multiprocessing
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.launch.dryrun import PRESETS, run_one
-    from repro_torch.launch.dryrun_ewl import run_ewl
     from repro_torch.launch.specs import applicable
-    combos = [(a, s, None) for a in DRYRUN_ARCHS
-              for s in ("decode_32k", "long_500k")] + list(DRYRUN_MORE)
-    for arch, shape, preset in combos:
-        t0 = time.perf_counter()
-        rec = run_one(arch, shape, verbose=False,
-                      opts=PRESETS[preset] if preset else None,
-                      tag=f"+{preset}" if preset else "")
-        rec.pop("traceback", None)
+    if combos is None:
+        combos = [(a, s, None) for a in DRYRUN_ARCHS
+                  for s in ("decode_32k", "long_500k")] + list(DRYRUN_MORE)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        done = list(ex.map(_dryrun_record, list(combos) + [None]))
+    for combo, (rec, took) in zip(combos, done):
+        arch, shape, preset = combo
         log("[dryrun] " + json.dumps(rec))
         want = "ok" if applicable(get_config(arch), SHAPES[shape])[0] \
             else "skipped"
@@ -3171,10 +3267,8 @@ def dryrun_records() -> None:
             log(f"[dryrun] {arch} x {shape}{rec['mesh'][8:]}: "
                 f"{gib:.2f} GiB a device, flops {rec['hlo_flops']:.4g},"
                 f" collectives {sum(rec['collective_bytes'].values()):.4g} B"
-                f" -> {rec['bottleneck']} (trace "
-                f"{time.perf_counter() - t0:.1f} s)")
-    rec = run_ewl(verbose=False)
-    log("[dryrun] " + json.dumps(rec))
+                f" -> {rec['bottleneck']} (trace {took:.1f} s)")
+    log("[dryrun] " + json.dumps(done[-1][0]))
 
 
 def fit_check(seed: int) -> None:
@@ -3275,6 +3369,506 @@ def card_rates() -> None:
         f"link {LINK_BW / 1e9:.0f} GB/s not measured (one card); {smi()}")
     del a, b, x, y
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 15
+PAD_TOL = 1e-4       # padded vs unpadded fp32 step, of a leaf's largest |x|
+# xlstm-1.3b: its sLSTM recurrence carries the rounding of every
+# product before it, whose summation order changes with the row count
+# (a padded prompt's or a batch's), through 300 steps and 6 sLSTM layers;
+# ``padding_gap`` holds the padding in fp64 and the padded fp32 state to
+# PAD_GAP_FACTOR times the gap that batching the prompt gives
+PAD_TOL_ARCH = {"xlstm-1.3b": 1e-2}
+PAD_TOL_FP64 = 1e-9  # padded vs exact, fp64 plain path
+# ``padding_gap``: xlstm-1.3b cut to two sLSTM blocks, prompt lengths
+# (one bucket), prompt seeds
+PAD_GAP_LAYERS, PAD_GAP_LENGTHS, PAD_GAP_SEEDS = 16, (300, 400), (0, 1, 2)
+PAD_GAP_FACTOR = 2.0
+VLM_PREFILL_LAYERS = 4                 # 15a: pixtral-12b in fp32, 40 -> 4
+# the same bursts with eager prefills, on an H100 80GB HBM3 at 700 W
+# (PERF.md section 5): wall s, busy s (None: not kept), prompt tokens
+EAGER_BURST = {"qwen2.5-3b": (1.0511, 0.3099, 256),
+              "recurrentgemma-2b": (0.8025, None, 256),
+              "xlstm-1.3b": (3.3520, None, 64)}
+EAGER_BY_RULE = ("MoE prefill (the grouped form reads the expert counts to "
+                 "the host), paged_copy_page (two index copies before a "
+                 "suffix prefill), the mode-switch recompute "
+                 "(core.mode_switch), the training step, the live "
+                 "cluster's execution pipelines (each serves only until "
+                 "its nodes mode-switch, a few ticks: a capture a bucket "
+                 "would not be repaid)")
+
+
+def _state_gap(a, b, paged: bool):
+    """(bitwise equal, largest |a - b| over the largest |b| of any leaf)
+    of two engines' caches, the pools without their trash page (padded
+    rows write it in no fixed order)."""
+    import torch
+
+    def pairs(x, y):
+        for name in x:
+            u, v = x[name], y[name]
+            if isinstance(u, dict):
+                yield from pairs(u, v)
+            elif paged and "k" in x:
+                yield u[:-1], v[:-1]
+            else:
+                yield u, v
+    equal, gap = True, 0.0
+    for x, y in zip(a["layers"], b["layers"]):
+        for u, v in pairs(x, y):
+            equal &= torch.equal(u, v)
+            if v.is_floating_point():
+                scale = v.float().abs().max().item() or 1.0
+                gap = max(gap, (u.float() - v.float()).abs().max().item()
+                          / scale)
+            elif not torch.equal(u, v):
+                gap = float("inf")
+    return equal and torch.equal(a["pos"], b["pos"]), gap
+
+
+def _unpadded(cfg, params, eng):
+    """``eng``'s prefill step replaced by the unpadded eager one at the
+    exact length (forward, then the scatter with host ints): the
+    reference a padded step is held to."""
+    import torch
+    from repro_torch.models import (cache_from_prefill, cache_scatter,
+                                    forward, paged_prefill_scatter,
+                                    paged_suffix_prefill)
+
+    def step(kind, slot, toks):
+        t = torch.tensor([list(toks)], device="cuda")
+        if kind == "suffix":
+            logits, _ = paged_suffix_prefill(cfg, params, eng.cache, t, slot,
+                                             int(eng._start[0]))
+            first = logits.argmax(-1)
+        else:
+            out = forward(cfg, params, {"tokens": t}, build_cache=True,
+                          cache_len=eng.max_len, moe_cf=None,
+                          last_only=True)
+            first = out["logits"][0, -1:].argmax(-1)
+            if eng.paged:
+                paged_prefill_scatter(cfg, eng.cache, out["kv"], slot,
+                                      eng.cache["pages"][slot], len(toks))
+            else:
+                cache_scatter(eng.cache, cache_from_prefill(
+                    cfg, out["kv"], eng.max_len, len(toks)), slot)
+        eng._tok[slot] = first[0]
+        return first
+    eng._prefill_step = step
+    return eng
+
+
+def check_prefill_engines(cfg, params, label: str, paged: bool, trace,
+                          sharing: bool = False) -> None:
+    """15a for a ``ContinuousBatchingEngine``: three engines on one fp32
+    model (captured prefills; the same padded steps eager; the unpadded
+    eager steps) serve ``trace`` (one new token a request: prefills
+    only) tick by tick.  After every tick the captured engine's cache is
+    bitwise equal to the eager one's and within PAD_TOL (PAD_TOL_ARCH) of
+    the unpadded one's, with equal launch counts on all three; the first
+    tokens are equal."""
+    import torch
+    from repro_torch.kernels import KERNELS, graph, reset_launch_counts
+    from repro_torch.serving import ContinuousBatchingEngine
+    kw = dict(n_slots=4, max_len=1024, paged=paged, page_size=16,
+              prefix_sharing=sharing, max_prefill_per_tick=2)
+    engines = [ContinuousBatchingEngine(cfg, params, **kw) for _ in range(3)]
+    g, e, x = engines
+    e.prefill_graphs = graph.StepGraphs("cuda", capturing=False)
+    _unpadded(cfg, params, x)
+    for eng in engines:
+        for i, (p, n) in enumerate(trace):
+            eng.submit(p, n, req_id=i)
+    gap, ticks, total = 0.0, 0, {}
+    tol = PAD_TOL_ARCH.get(cfg.arch_id, PAD_TOL)
+    while True:
+        counts, ran = [], []
+        for eng in engines:
+            reset_launch_counts()
+            ran.append(eng.step())
+            torch.cuda.synchronize()
+            counts.append({k.__name__: k.launches for k in KERNELS
+                           if k.launches})
+        if len(set(ran)) != 1 or counts[1:] != counts[:2]:
+            raise AssertionError(f"{label}: tick {ticks} launch counts "
+                                 f"differ: {counts}")
+        if not ran[0]:
+            break
+        ticks += 1
+        for k, n in counts[0].items():
+            total[k] = total.get(k, 0) + n
+        same, _ = _state_gap(g.cache, e.cache, paged)
+        if not same or not torch.equal(g._tok, e._tok):
+            raise AssertionError(f"{label}: tick {ticks}: the replayed "
+                                 f"prefill is not bitwise the eager one")
+        gap = max(gap, _state_gap(g.cache, x.cache, paged)[1])
+        if gap > tol:
+            raise AssertionError(f"{label}: tick {ticks}: padded vs "
+                                 f"unpadded cache {gap:.3g} of the largest "
+                                 f"value (tolerance {tol})")
+    firsts = [{r: q.generated[0] for r, q in eng.sched.finished.items()}
+              for eng in engines]
+    if firsts[0] != firsts[1] or firsts[0] != firsts[2]:
+        raise AssertionError(f"{label}: first tokens differ: {firsts}")
+    kinds = {k[0] for k, st in g.prefill_graphs.steps.items() if st.replays}
+    if "fresh" not in kinds or (sharing and "suffix" not in kinds):
+        raise AssertionError(f"{label}: no replayed prefill ({kinds})")
+    log(f"[prefill] {label} fp32: {len(trace)} prompts "
+        f"({', '.join(str(len(p)) for p, _ in trace)} tokens) in {ticks} "
+        f"ticks; replays bitwise equal to the eager padded steps, launch "
+        f"counts equal on all three paths, tick by tick ({total} in all), "
+        f"first tokens equal to the unpadded steps', cache within "
+        f"{gap:.3g} of theirs (tolerance {tol}); shared tokens "
+        f"{g.stats['shared_tokens']}; {prefill_note(g)}")
+
+
+def padding_gap(cfg, params, seed: int) -> None:
+    """What the padded xlstm prefill's gap to the exact one is made of
+    (xlstm-1.3b cut to PAD_GAP_LAYERS layers: two sLSTM blocks), for
+    prompts of each of PAD_GAP_LENGTHS tokens from each of
+    PAD_GAP_SEEDS, all padded to one bucket:
+    (1) the sLSTM input product (``xlstm._slstm_pre``, the first sLSTM
+    layer's weights) on a random (1, n, d) input, at n rows and as the
+    first n of the bucket's rows: how many outputs differ and by how much
+    (of the largest), beside each one's error to the fp64 product;
+    (2) per prompt, each cache's gap (largest |diff| of a leaf over its
+    largest |value|, with its layer and leaf) to the exact-length fp64
+    prefill on the plain path (the same weights in fp64): fp32 exact;
+    fp32 exact in a batch with a second prompt of the same length (its
+    row 0: batching changes every product's row count, as padding
+    does); fp32 padded; fp64 padded, which must lie within PAD_TOL_FP64
+    (the padding is exact).  Then padded vs exact and batched vs exact,
+    fp32 against fp32: the largest padded gap is held to PAD_GAP_FACTOR
+    times the largest batched one."""
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models.xlstm import _slstm_pre
+    from repro_torch.serving.engine import prefill_bucket
+    p64 = _map_tree(lambda t: t.double(), params)
+    sl = next(lp["slstm"] for lp in params["layers"] if "slstm" in lp)
+    sl64 = _map_tree(lambda t: t.double(), sl)
+    Sb = prefill_bucket(max(PAD_GAP_LENGTHS), 1024)
+    rng = np.random.default_rng(seed + 153)
+
+    def rel(a, b):
+        return (a.double() - b.double()).abs().max().item() / (
+            b.double().abs().max().item() or 1.0)
+    prods = []
+    for n in PAD_GAP_LENGTHS:
+        for _ in PAD_GAP_SEEDS:
+            x = torch.from_numpy(rng.standard_normal(
+                (1, Sb, cfg.d_model), dtype=np.float32)).cuda()
+            at_n = _slstm_pre(sl, x[:, :n])
+            in_b = _slstm_pre(sl, x)[:, :, :n]
+            want = _slstm_pre(sl64, x[:, :n].double())
+            prods.append((n, (at_n != in_b).float().mean().item(),
+                          rel(in_b, at_n), rel(at_n, want), rel(in_b, want)))
+    log(f"[prefill] {cfg.arch_id} sLSTM input product at n rows vs the "
+        f"first n of {Sb} rows, fp32 (share of outputs that differ, "
+        f"largest diff of the largest output; each one's error to fp64): "
+        + "; ".join(f"n {n}: {100 * share:.1f}% differ by up to {d:.3g} "
+                    f"(errors {e1:.3g} at n rows, {e2:.3g} in {Sb})"
+                    for n, share, d, e1, e2 in prods))
+
+    def run(p, t, **kw):
+        return forward(cfg, p, {"tokens": t}, build_cache=True,
+                       moe_cf=None, last_only=True, **kw)["kv"]
+
+    def gap(kv, ref):
+        return max((rel(a[leaf], b[leaf]), i, leaf)
+                   for i, (a, b) in enumerate(zip(kv, ref)) for leaf in b)
+    pairs = []
+    for n in PAD_GAP_LENGTHS:
+        for s in PAD_GAP_SEEDS:
+            r = np.random.default_rng(seed + 154 + s)
+            toks = torch.from_numpy(r.integers(0, cfg.vocab_size,
+                                               (2, n))).cuda()
+            pad = torch.zeros((1, Sb), dtype=torch.int64, device="cuda")
+            pad[:, :n] = toks[:1]
+            length = torch.tensor([n]).cuda()
+            ref = run(p64, toks[:1], kernel_impl="plain")
+            exact = run(params, toks[:1])
+            runs = {"fp32 exact": exact,
+                    "fp32 exact batched": [{k: v[:1] for k, v in st.items()}
+                                           for st in run(params, toks)],
+                    f"fp32 padded to {Sb}": run(params, pad, length=length),
+                    f"fp64 padded to {Sb} plain": run(p64, pad,
+                                                      length=length,
+                                                      kernel_impl="plain")}
+            gaps = {k: gap(kv, ref) for k, kv in runs.items()}
+            if gaps[f"fp64 padded to {Sb} plain"][0] > PAD_TOL_FP64:
+                raise AssertionError(f"{cfg.arch_id}: the fp64 padded "
+                                     f"prefill is not the exact one")
+            pairs.append((gap(runs[f"fp32 padded to {Sb}"], exact)[0],
+                          gap(runs["fp32 exact batched"], exact)[0]))
+            log(f"[prefill] {cfg.arch_id} depth {cfg.n_layers}, seed {s}, "
+                f"{n}-token prompt, state gap to the exact-length fp64 "
+                f"prefill: " + ", ".join(
+                    f"{k} {g:.3g} (layer {i} {leaf})"
+                    for k, (g, i, leaf) in gaps.items())
+                + f"; to the fp32 exact prefill: padded {pairs[-1][0]:.3g}"
+                f", batched {pairs[-1][1]:.3g}")
+    padded, batched = max(a for a, _ in pairs), max(b for _, b in pairs)
+    log(f"[prefill] {cfg.arch_id}: fp32 vs fp32 exact over "
+        f"{len(pairs)} prompts, padded {min(a for a, _ in pairs):.3g}.."
+        f"{padded:.3g}, batched {min(b for _, b in pairs):.3g}.."
+        f"{batched:.3g} (padded held to {PAD_GAP_FACTOR} x the batched)")
+    if padded > PAD_GAP_FACTOR * batched:
+        raise AssertionError(f"{cfg.arch_id}: padding moves the fp32 "
+                             f"state further than batching does")
+    del p64
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def check_static_prefill(cfg, params, batches, n_new: int, label: str):
+    """15a for ``InferenceEngine``: captured (prefill and decode) against
+    the same engine eager, ``generate`` on each batch (all of one shape:
+    the second call replays both); tokens and the engine's cache bitwise
+    equal and launch counts equal.  The engine pads nothing: its
+    replayed prefill's first token equals a direct ``forward``'s at the
+    same shape, its cache within PAD_TOL (printed: bitwise or not)."""
+    import torch
+    from repro_torch.kernels import KERNELS, graph, reset_launch_counts
+    from repro_torch.models import cache_from_prefill, forward, n_positions
+    from repro_torch.serving import InferenceEngine
+    g, e = InferenceEngine(cfg, params), InferenceEngine(cfg, params)
+    e.prefill_graphs = graph.StepGraphs("cuda", capturing=False)
+    e.decode_graphs = graph.StepGraphs("cuda", capturing=False)
+    for batch in batches:
+        out, counts = [], []
+        for eng in (g, e):
+            reset_launch_counts()
+            out.append(eng.generate(batch, n_new))
+            torch.cuda.synchronize()
+            counts.append({k.__name__: k.launches for k in KERNELS
+                           if k.launches})
+        if not torch.equal(*out) or counts[0] != counts[1]:
+            raise AssertionError(f"{label}: replays differ from eager "
+                                 f"({counts})")
+        for x, y in zip(g._shapes.values(), e._shapes.values()):
+            if not _state_gap(x["cache"], y["cache"], False)[0]:
+                raise AssertionError(f"{label}: replayed cache differs")
+    batch = batches[-1]
+    cache_len = batch["tokens"].shape[1] + n_new
+    logits, cache = g.prefill(batch, cache_len=cache_len)
+    ref = forward(cfg, params, batch, build_cache=True, cache_len=cache_len,
+                  moe_cf=None, last_only=True)
+    want = cache_from_prefill(cfg, ref["kv"], cache_len,
+                              n_positions(cfg, batch))
+    same, gap = _state_gap(cache, want, False)
+    if not torch.equal(logits.argmax(-1), ref["logits"][:, -1].argmax(-1)) \
+            or gap > PAD_TOL:
+        raise AssertionError(f"{label}: replayed prefill vs forward: first "
+                             f"tokens or cache ({gap:.3g})")
+    dec = next(iter(g.decode_graphs.steps.values()))
+    log(f"[prefill] {label} fp32 InferenceEngine: {len(batches)} x "
+        f"generate({tuple(batch['tokens'].shape)}, {n_new} new) captured "
+        f"vs eager: tokens, cache and launch counts equal ({counts[0]}); "
+        f"replayed prefill vs a direct forward: first tokens equal, cache "
+        f"{'bitwise equal' if same else f'within {gap:.3g}'}; "
+        f"{prefill_note(g)}; decode graph {dec.capture_s:.2f} "
+        f"s, {dec.pool_bytes / 2**20:.1f} MiB, {dec.replays} replays")
+
+
+def prefill_fp32(seed: int) -> None:
+    """15a: each captured step in fp32 at full width (pixtral cut to
+    VLM_PREFILL_LAYERS layers): qwen2.5-3b paged with prefix sharing
+    (fresh and suffix prefills) and striped, recurrentgemma-2b and
+    xlstm-1.3b paged, pixtral-12b (patches) and whisper-large-v3
+    (frames) on ``InferenceEngine``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rglru_scan
+    from repro_torch.models import init_params, make_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 150)
+    tok = lambda n: list(map(int, rng.integers(0, 32000, n)))  # noqa: E731
+    base = tok(300)
+    dense = [(base + tok(20), 1), (tok(400), 1), (base[:200] + tok(50), 1),
+             (tok(290), 1), (base[:150] + tok(40), 1),
+             (base[:250] + tok(30), 1)]
+    recurrent = [(tok(n), 1) for n in (300, 400, 290, 100, 120)]
+    for arch, trace, layouts in (
+            ("qwen2.5-3b", dense, (True, False)),
+            ("recurrentgemma-2b", recurrent, (True,)),
+            ("xlstm-1.3b", recurrent, (True,))):
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=seed, dtype=torch.float32,
+                             device="cuda")
+        # the RG-LRU scan's look-back adds carries in the order its chunks
+        # arrive, so two runs may differ in the last bits: one chunk a
+        # chain (the plain walk) sums in one order, run after run
+        rglru_scan.force_chunks = 1 if arch == "recurrentgemma-2b" else None
+        for paged in layouts:
+            check_prefill_engines(
+                cfg, params, f"{arch} {'paged' if paged else 'striped'}"
+                + (" (one scan chunk a chain)"
+                   if rglru_scan.force_chunks else ""),
+                paged, trace, sharing=paged and arch == "qwen2.5-3b")
+            torch.cuda.empty_cache()
+        if arch in PAD_TOL_ARCH:
+            padding_gap(dataclasses.replace(cfg, n_layers=PAD_GAP_LAYERS),
+                        dict(params,
+                             layers=params["layers"][:PAD_GAP_LAYERS]),
+                        seed)
+        rglru_scan.force_chunks = None
+        del params
+        torch.cuda.empty_cache()
+    for arch, layers, n_text in ((VLM_ARCH, VLM_PREFILL_LAYERS, 200),
+                                 (ENCDEC_ARCH, None, 40)):
+        cfg, params, _, _ = family_model(arch, torch.float32, seed,
+                                         n_layers=layers)
+        batches = [make_batch(cfg, 2, n_text + (cfg.n_patches or 0),
+                              seed=seed + 151 + i, device="cuda")
+                   for i in range(2)]
+        check_static_prefill(cfg, params, batches, 8,
+                             f"{arch}" + (f" depth {layers}" if layers
+                                          else ""))
+        del params, batches
+        torch.cuda.empty_cache()
+
+
+def burst_passes(seed: int) -> None:
+    """15b: the bf16 burst of ``profile_ticks`` (8 requests x 24 new
+    tokens, the prompt length of ``EAGER_BURST``) twice on a fresh paged
+    engine of each of qwen2.5-3b, recurrentgemma-2b and xlstm-1.3b: the
+    first pass captures (prefill bucket and decode), the second replays;
+    wall time, device-busy time and idle share of each beside the eager
+    prefills'."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine
+    for arch, (wall0, busy0, prompt) in EAGER_BURST.items():
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=seed, dtype=torch.bfloat16,
+                             device="cuda")
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=8,
+                                       max_len=2048, page_size=16)
+        # each pass its own prompts: a repeated prompt would be a cached
+        # prefix, and its prefill a suffix prefill
+        passes = [profile_ticks(eng, cfg.vocab_size, seed + i, f"{arch} "
+                                f"burst pass {i + 1}", prompt=prompt,
+                                first_id=1000 * (i + 1))
+                  for i in range(2)]
+        log(f"[burst] {arch} paged bf16, 8 x ({prompt} prompt, 24 new): "
+            + "; ".join(f"pass {i + 1} wall {w:.4f} s, busy {b:.4f} s, "
+                        f"idle {100 * (1 - b / w):.1f}%"
+                        for i, (w, b) in enumerate(passes))
+            + f"; with eager prefills: wall {wall0:.4f} s"
+            + (f", busy {busy0:.4f} s" if busy0 else "") + "; "
+            + graph_note(eng))
+        del eng, params
+        torch.cuda.empty_cache()
+
+
+def static_decode_tick(seed: int) -> None:
+    """15c: ``InferenceEngine``'s decode tick at phase 3's 4 x 512
+    (qwen2.5-3b bf16): the same step eager and replayed, host-clock ms
+    a tick over 20 ticks ending in a synchronise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graph
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.serving import InferenceEngine
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    batch = make_batch(cfg, 4, 512, seed=seed + 3, device="cuda")
+    ms = {}
+    for mode in ("eager", "replay"):
+        eng = InferenceEngine(cfg, params)
+        if mode == "eager":
+            eng.decode_graphs = graph.StepGraphs("cuda", capturing=False)
+        out = eng.generate(batch, 32)
+        tok = out[:, -1].clone()
+        key = next(iter(eng._shapes))
+        eng._decode(key, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng._decode(key, tok)
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) / 20 * 1e3
+        note = prefill_note(eng)
+        del eng
+    log(f"[static] qwen2.5-3b InferenceEngine decode tick, 4 x 512 bf16: "
+        f"{ms['eager']:.3f} ms eager, {ms['replay']:.3f} ms replayed "
+        f"({ms['eager'] / ms['replay']:.2f}x); {note}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def pipe_tick(seed: int) -> None:
+    """15d: the λPipe tick at phase 9's shape (qwen2.5-3b bf16, 4 stages
+    of 9 layers on cuda:0, 2 microbatches, 8 slots) at a 512-token
+    bucket, the head at one row a slot: eager ``pipelined_forward``
+    against its stage graphs' replays, host-clock ms a tick (each ends in
+    a synchronise, as a tick ends in a host read), and logits equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (PipelinedEngine, pipelined_forward,
+                                         stage_params)
+    from repro_torch.models import init_params
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    stages = stage_params(cfg, params, EWL_BLOCKS, ["cuda"] * EWL_BLOCKS)
+    pipe = PipelinedEngine.from_stages(cfg, stages, n_microbatches=2,
+                                       n_slots=8, max_len=1024, pad_to=64)
+    rng = np.random.default_rng(seed + 152)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (8, 512))).cuda()
+    last = torch.from_numpy(rng.integers(300, 512, 8)).cuda()
+    ticks = {"eager": lambda: pipelined_forward(
+                 cfg, stages, {"tokens": tokens}, 2, last=last),
+             "replay": lambda: pipe.forward_fn(tokens, last)}
+    ms, out = {}, {}
+    for mode, fn in ticks.items():
+        out[mode] = fn()                       # replay: warm-up + capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) / 5 * 1e3
+    again = pipe.forward_fn(tokens, last)
+    if not torch.equal(again, out["eager"]):
+        raise AssertionError("λPipe tick: replay differs from eager")
+    n_graphs = len(pipe.graphs)
+    pools = sum(s.pool_bytes for g in pipe.graphs.graphs.values()
+                for s in g.steps.values())
+    cap = sum(s.capture_s for g in pipe.graphs.graphs.values()
+              for s in g.steps.values())
+    log(f"[pipe] qwen2.5-3b λPipe tick, 4 stages x 9 layers, 2 "
+        f"microbatches, 8 x 512 bf16: {ms['eager']:.2f} ms eager, "
+        f"{ms['replay']:.2f} ms replayed ({ms['eager'] / ms['replay']:.2f}"
+        f"x); "
+        f"{n_graphs} graphs (4 stages + head) captured in {cap:.2f} s, "
+        f"pool {pools / 2**20:.1f} MiB; logits bitwise equal to eager")
+    del pipe, stages, params
+    torch.cuda.empty_cache()
+
+
+def compiled_prefill(seed: int) -> None:
+    """Phase 15: the compiled prefills, the λPipe tick and
+    ``InferenceEngine`` (15a-15d; 15e, the graphs, on every line)."""
+    prefill_fp32(seed)
+    burst_passes(seed)
+    static_decode_tick(seed)
+    pipe_tick(seed)
+    log(f"[graphs] eager on the card by rule: {EAGER_BY_RULE}; every other "
+        f"serving step replays a graph after its first use")
 
 
 def main() -> int:
@@ -3399,6 +3993,10 @@ def main() -> int:
     card_rates()
     log(f"[phase] 14 (dry-run on placeholder ranks, fit check, card rates) "
         f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    compiled_prefill(args.seed)
+    log(f"[phase] 15 (compiled prefills, InferenceEngine, λPipe tick) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {"paged_decode_step": (csrc + "paged_decode_step.cu",

@@ -11,11 +11,19 @@ stage is exactly what a receiving node runs from the blocks it has
 unpacked (``core.partial_exec``).  The counterpart of
 ``repro.distributed.pipeline``, whose stages are the devices of a JAX
 mesh.
+
+The serving tick is compiled as the JAX package jit-compiles it, one
+executable per padded token length: ``PipelineGraphs`` captures each
+stage's step (the embedding on the first stage, then its layer range)
+and the head (at the ``last`` rows) as CUDA graphs per token bucket,
+lazily at the bucket's first tick.  A graph cannot span
+devices, so the hand-offs between stages stay outside the graphs.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import _unit_of, flatten_params
 from repro_torch.core.partial_exec import (apply_layer_range,
                                            embed_from_flat, head_from_flat)
+from repro_torch.kernels import graph
+from repro_torch.models.model import has_moe
 from repro_torch.serving.scheduler import DEFAULT_SLOTS, Scheduler, SeqState
 
 
@@ -81,29 +91,95 @@ def _on(device: torch.device):
         else contextlib.nullcontext()
 
 
+def _stage_step(cfg: ModelConfig, st: PipelineStage, first: bool, x, _,
+                kernel_impl: str):
+    """One stage's work on one microbatch: the embedding of tokens ``x``
+    (mb, S) on the first stage (else ``x`` is the activation (mb, S, d)),
+    then the stage's layers."""
+    if first:
+        x = embed_from_flat(cfg, st.flat, x)
+    mb, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(mb, S)
+    return apply_layer_range(cfg, st.flat, x, st.lo, st.hi, positions,
+                             kernel_impl=kernel_impl)
+
+
+def _head_step(cfg: ModelConfig, st: PipelineStage, hidden, last):
+    """The head of the last stage, at the ``last`` rows ((B,) positions)
+    of ``hidden`` (B, S, d), or at every row."""
+    if last is None:
+        return head_from_flat(cfg, st.flat, hidden)
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    return head_from_flat(cfg, st.flat, hidden[rows, last][:, None])[:, 0]
+
+
+class PipelineGraphs:
+    """A pipeline's stage steps and head captured as CUDA graphs, one
+    per (stage or "head", input shape, ``last`` or not): each
+    is captured at its first use, after an eager run on a side stream,
+    and every step of one device shares that device's memory pool.
+    ``run`` stages a microbatch's input in place into the key's static
+    buffers and replays; on the CPU, or for a config with a ``moe`` ffn
+    (whose grouped form reads the expert counts to the host), the same
+    step runs eagerly.  It returns a copy of the step's output: a tick
+    replays another stage of the device (another key in the shared pool,
+    whose temporaries may lie where this output does) before the next
+    stage reads it."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.capturing = not has_moe(cfg)
+        self.graphs: Dict[torch.device, graph.StepGraphs] = {}
+        self._inputs: Dict[tuple, List[torch.Tensor]] = {}
+
+    def run(self, s, st: PipelineStage, x, last, step: Callable):
+        """``step(x, last)`` for stage ``s`` (or the head) through its
+        graph; returns a copy of its output.  The stage's weights are
+        among the guarded inputs: a stage whose tensors moved raises."""
+        key = (s, tuple(x.shape), x.dtype, last is not None)
+        if key not in self._inputs:
+            self._inputs[key] = [torch.empty_like(t) for t in (x, last)
+                                 if t is not None]
+        bufs = self._inputs[key]
+        for buf, t in zip(bufs, (x, last)):
+            buf.copy_(t)
+        xb, lb = bufs[0], (bufs[1] if last is not None else None)
+        if st.device not in self.graphs:
+            self.graphs[st.device] = graph.StepGraphs(
+                st.device, capturing=self.capturing)
+        return self.graphs[st.device].run(
+            key, lambda: step(xb, lb), bufs + list(st.flat.values())
+        ).clone()
+
+    def __len__(self) -> int:
+        return sum(len(g) for g in self.graphs.values())
+
+
 @torch.no_grad()
 def pipelined_forward(cfg: ModelConfig, stages: Sequence[PipelineStage],
                       batch: Dict, n_microbatches: int, *,
                       last: Optional[torch.Tensor] = None,
-                      kernel_impl: str = "kernel") -> torch.Tensor:
+                      kernel_impl: str = "kernel",
+                      graphs: Optional[PipelineGraphs] = None
+                      ) -> torch.Tensor:
     """Forward pass with the trunk pipelined over ``stages``.
 
     batch["tokens"]: (B, S) with B % n_microbatches == 0.  Returns logits
     (B, S, vocab), equal to ``repro_torch.models.forward``; with ``last``
     ((B,) positions) only the row at each sequence's position goes
-    through the head, and the result is (B, vocab)."""
+    through the head, and the result is (B, vocab).  With ``graphs`` each
+    stage step of each microbatch, and the head, is a replay of its
+    captured graph."""
     n_stages = len(stages)
     tokens = batch["tokens"]
     B, S = tokens.shape
     M = n_microbatches
     assert B % M == 0
     mb = B // M
-    embeds = embed_from_flat(cfg, stages[0].flat,
-                             tokens.to(stages[0].device)).split(mb)
-    positions = [torch.arange(S, device=st.device).expand(mb, S)
-                 for st in stages]
+    toks = tokens.to(stages[0].device).split(mb)
     inbox: List[Optional[torch.Tensor]] = [None] * n_stages
     outs: List[Optional[torch.Tensor]] = [None] * M
+    run = ((lambda s, st, x, last, step: step(x, last)) if graphs is None
+           else graphs.run)
     for t in range(M + n_stages - 1):
         # later stages first: stage s+1 takes what stage s sent last tick
         # before stage s sends again
@@ -112,21 +188,21 @@ def pipelined_forward(cfg: ModelConfig, stages: Sequence[PipelineStage],
             if not 0 <= m < M:
                 continue
             st = stages[s]
-            x = embeds[m] if s == 0 else inbox[s]
+            x = toks[m] if s == 0 else inbox[s]
+            step = functools.partial(_stage_step, cfg, st, s == 0,
+                                     kernel_impl=kernel_impl)
             # the kernels launch on the current device: make it the stage's
             with _on(st.device):
-                y = apply_layer_range(cfg, st.flat, x, st.lo, st.hi,
-                                      positions[s], kernel_impl=kernel_impl)
+                y = run(s, st, x, None, step)
             if s == n_stages - 1:
                 outs[m] = y
             else:
                 inbox[s + 1] = y.to(stages[s + 1].device, non_blocking=True)
-    hidden = torch.cat(outs)
-    if last is not None:
-        rows = torch.arange(B, device=hidden.device)
-        hidden = hidden[rows, last.to(hidden.device)][:, None]
-        return head_from_flat(cfg, stages[-1].flat, hidden)[:, 0]
-    return head_from_flat(cfg, stages[-1].flat, hidden)
+    st = stages[-1]
+    with _on(st.device):
+        return run("head", st, torch.cat(outs),
+                   None if last is None else last.to(st.device),
+                   functools.partial(_head_step, cfg, st))
 
 
 # ================================================= continuous batching (EWL)
@@ -162,6 +238,8 @@ class PipelinedEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.pad_to = pad_to
+        # the tick's stage graphs (``from_stages``), or None
+        self.graphs: Optional[PipelineGraphs] = None
         self.sched = Scheduler(n_slots,
                                max_prefill_per_tick=max_prefill_per_tick,
                                policy=policy)
@@ -173,14 +251,19 @@ class PipelinedEngine:
                     n_slots: int = DEFAULT_SLOTS,
                     kernel_impl: str = "kernel", **kw) -> "PipelinedEngine":
         """λPipe trunk over ``stages`` (``stage_params`` or
-        ``stages_from_flat``): the forward is ``pipelined_forward``."""
+        ``stages_from_flat``): the forward is ``pipelined_forward`` with
+        the engine's ``PipelineGraphs`` (``graphs``), so every tick of a
+        bucket after its first replays each stage's graph."""
         assert n_slots % n_microbatches == 0
+        graphs = PipelineGraphs(cfg)
 
         def fwd(tokens: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
             return pipelined_forward(cfg, stages, {"tokens": tokens},
                                      n_microbatches, last=last,
-                                     kernel_impl=kernel_impl)
-        return cls(cfg, fwd, device=stages[0].device, n_slots=n_slots, **kw)
+                                     kernel_impl=kernel_impl, graphs=graphs)
+        eng = cls(cfg, fwd, device=stages[0].device, n_slots=n_slots, **kw)
+        eng.graphs = graphs
+        return eng
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,

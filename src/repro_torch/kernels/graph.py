@@ -2,7 +2,7 @@
 
 What stands in for ``jax.jit`` in the port: a function whose every
 tensor keeps its address from one call to the next (a decode tick that
-updates its cache in place) is captured once with ``torch.cuda.graph``
+updates its cache in place) is captured once as a ``torch.cuda.CUDAGraph``
 and then replayed, one launch of the whole step from the host.
 
 Two things a plain ``CUDAGraph`` does not do, done here:
@@ -18,6 +18,12 @@ Two things a plain ``CUDAGraph`` does not do, done here:
   holds a reference to every input, so none of that memory can be
   reused under it.
 
+``StepGraphs`` holds a family of such steps keyed by shape (one per
+length bucket, as ``jax.jit`` keeps one executable per static shape):
+each key is captured lazily at its first use, after an eager run of the
+step on a side stream (the real work of that call, and the capture's
+warm-up), and every key's graph shares one memory pool.
+
 A capture that fails raises; nothing here falls back to eager dispatch.
 """
 from __future__ import annotations
@@ -25,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Callable, Dict, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Sequence
 
 import torch
 
@@ -86,21 +92,62 @@ class CapturedStep:
             fn.launches += n
 
 
+def warm_up(fn: Callable, device):
+    """``fn()`` run eagerly on a side stream of CUDA ``device`` (the
+    warm-up a capture needs: kernel builds, cached split and chunk counts,
+    cuBLAS handles, per-device scratch grown to this step's size); the
+    streams are joined both ways, so every launch on the device stays
+    serialised (the decode kernels and the scan share per-device
+    counters).  Returns what ``fn`` returned."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
+# below this much free device memory a capture first empties the
+# allocator's cache
+LOW_FREE_BYTES = 8 << 30
+
+# one capture stream a device: ``torch.cuda.graph``'s default is one
+# stream for every device, and a capture for another card than the first
+# then records nothing; captures of one device share theirs, so a shared
+# pool can reuse the blocks an earlier capture freed (blocks keep their
+# stream)
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device):
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    return _STREAMS[device]
+
+
 def capture(fn: Callable, inputs: Sequence[torch.Tensor],
-            device) -> CapturedStep:
+            device, pool=None) -> CapturedStep:
     """Capture ``fn()`` on ``device`` as a CUDA graph.  Capture runs
     nothing on the device: ``fn`` must have run eagerly before (its
     warm-up: kernel builds, cached split counts, cuBLAS handles,
     per-device scratch sized for this step), and its results are the
     graph's static outputs.  ``inputs`` are the tensors the step reads
-    and writes from outside (its cache and staged inputs)."""
+    and writes from outside (its cache and staged inputs).  ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``) shares a memory pool with other
+    graphs that never replay concurrently; None gives the graph its own."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
     t0 = time.perf_counter()
     torch.cuda.synchronize(device)
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the allocator keeps its cached blocks (``torch.cuda.graph`` empties
+    # them, and the caller then pays a cudaFree of each now and a
+    # cudaMalloc again later: most of a capture's cost inside a serving
+    # tick) unless the card is short of free memory for the graph's pool
+    if torch.cuda.mem_get_info(device)[0] < LOW_FREE_BYTES:
+        torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     g = torch.cuda.CUDAGraph()
     # no garbage collection inside the capture: collecting an old graph
@@ -109,9 +156,13 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.device(device), launches_moved() as moved:
-            with torch.cuda.graph(g):
+        with torch.cuda.device(device), launches_moved() as moved, \
+                torch.cuda.stream(_capture_stream(device)):
+            g.capture_begin(*(() if pool is None else (pool,)))
+            try:
                 out = fn()
+            finally:
+                g.capture_end()
     finally:
         if collecting:
             gc.enable()
@@ -120,3 +171,48 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
                         capture_s=time.perf_counter() - t0,
                         pool_bytes=torch.cuda.memory_reserved(device)
                         - reserved)
+
+
+class StepGraphs:
+    """Steps captured lazily on ``device``, one CUDA graph per key, all in
+    one memory pool (``pool``, made at the first capture).
+
+    ``run(key, body, inputs)`` runs ``body()``, a step that reads and
+    writes only ``inputs`` (static buffers the caller stages in place
+    before the call) and tensors that live as long as the graphs (the
+    weights): a replay of ``key``'s graph when it has one; else, on a
+    CUDA device, ``body`` eagerly on a side stream and then its capture
+    (the first call of each key costs an eager pass plus a capture); on
+    any other device, or with ``capturing=False``, ``body()`` eagerly.
+    Returns what ``body`` returned: the eager result on a first call, the
+    graph's static outputs on a replay.  Keys share one pool because the
+    steps never replay concurrently; but a key captured later may hold
+    its outputs where an earlier key's temporaries lie, so a caller reads
+    (or copies) a replay's outputs before it replays another key."""
+
+    def __init__(self, device, *, capturing: bool = True):
+        self.device = torch.device(device)
+        self.capturing = capturing and self.device.type == "cuda"
+        self.steps: Dict[Hashable, CapturedStep] = {}
+        self.pool = None
+
+    def run(self, key: Hashable, body: Callable,
+            inputs: Sequence[torch.Tensor]) -> Any:
+        step = self.steps.get(key)
+        if step is not None:
+            step.replay(inputs)
+            return step.out
+        if not self.capturing:
+            return body()
+        out = warm_up(body, self.device)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        self.steps[key] = capture(body, inputs, self.device, pool=self.pool)
+        return out
+
+    def drop(self, key: Hashable) -> None:
+        """Forget ``key``'s graph (its blocks go back to the pool)."""
+        self.steps.pop(key, None)
+
+    def __len__(self) -> int:
+        return len(self.steps)

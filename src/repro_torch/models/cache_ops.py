@@ -567,14 +567,34 @@ def _leaf_map(fn, *trees):
     return fn(*trees)
 
 
-def cache_scatter(pool_cache, seq_cache, slot: int):
-    """Write a batch-1 striped cache into row ``slot`` of the pooled one,
-    in place; returns the pool.  Every striped leaf keeps the slot on
-    axis 0 (``models.model.init_cache``), so the JAX package's per-leaf
-    batch-axis detection (``batch_axes``) is not needed; every leaf is
-    overwritten, recurrent state included."""
+def put_row(dst, slot, value) -> None:
+    """``dst[slot] = value`` in place: for an int ``slot``, ``value`` is a
+    scalar or a tensor with a leading axis of one; for a (1,) int64
+    tensor ``slot`` (one ``index_copy_``: no host value, so a CUDA graph
+    can hold it), a tensor of one row."""
+    if isinstance(slot, torch.Tensor):
+        dst.index_copy_(0, slot, value.to(dst.dtype).reshape(
+            (1,) + tuple(dst.shape[1:])))
+    else:
+        dst[slot] = value[0].to(dst.dtype) \
+            if isinstance(value, torch.Tensor) else value
+
+
+def slot_row(table, slot):
+    """Row ``slot`` of ``table`` (an int or a (1,) int64 tensor slot)."""
+    if isinstance(slot, torch.Tensor):
+        return table.index_select(0, slot)[0]
+    return table[slot]
+
+
+def cache_scatter(pool_cache, seq_cache, slot):
+    """Write a batch-1 striped cache into row ``slot`` (an int or a (1,)
+    int64 tensor) of the pooled one, in place; returns the pool.  Every
+    striped leaf keeps the slot on axis 0 (``models.model.init_cache``),
+    so the JAX package's per-leaf batch-axis detection (``batch_axes``) is
+    not needed; every leaf is overwritten, recurrent state included."""
     def scatter(pool, seq):
-        pool[slot] = seq[0].to(pool.dtype)
+        put_row(pool, slot, seq)
         return pool
     return _leaf_map(scatter, pool_cache, seq_cache)
 

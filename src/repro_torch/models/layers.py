@@ -223,28 +223,30 @@ def init_kv_cache(cfg, batch, max_len, dtype, device, *, window=None):
                               device=device)}
 
 
-def kv_cache_from_prefill(cfg, k, v, positions, max_len, *, window=None):
-    """Prefill K/V (B,S,kv,dh) at ``positions`` (B,S) as a decode cache of
-    ring width W = min(window, max_len) (``max_len`` without a window).
-    When S > W only the last W entries are kept, each at its ring slot
-    ``pos % W``.  (The JAX package sizes this ring at ``window`` even when
-    ``max_len`` is shorter; such a ring never wraps, so the outputs are
-    the same, and the width then equals ``init_cache``'s.)"""
+def kv_cache_from_prefill(cfg, k, v, n_tokens, max_len, *, window=None):
+    """Prefill K/V (B,S,kv,dh) of positions 0..S-1, the first ``n_tokens``
+    real (an int, or a (1,) int64 tensor for a prefill right-padded to a
+    length bucket), as a decode cache of ring width W = min(window,
+    max_len) (``max_len`` without a window).  Ring slot j holds the last
+    real position t = j (mod W), read by a device gather: so when more
+    than W tokens are real only the last W are kept, each at ``t % W``,
+    and a slot no real position reaches stays zero with position -1.
+    (The JAX package sizes this ring at ``window`` even when ``max_len``
+    is shorter; such a ring never wraps, so the outputs are the same, and
+    the width then equals ``init_cache``'s.)"""
     B, S = k.shape[0], k.shape[1]
     W = min(window, max_len) if window is not None else max_len
-    cache = init_kv_cache(cfg, B, max_len, k.dtype, k.device, window=W)
-    if S <= W:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
-        cache["pos"][:, :S] = positions.to(torch.int32)
-    else:
-        kt, vt, pt = k[:, -W:], v[:, -W:], positions[:, -W:].long()
-        bidx = torch.arange(B, device=k.device)[:, None]
-        slot = pt % W
-        cache["k"][bidx, slot] = kt
-        cache["v"][bidx, slot] = vt
-        cache["pos"][bidx, slot] = pt.to(torch.int32)
-    return cache
+    j = torch.arange(W, device=k.device)
+    t = j + W * ((n_tokens - 1 - j).clamp(min=0) // W)
+    live = j < n_tokens
+    idx = t.clamp(max=S - 1)
+
+    def ring(x):
+        r = x.index_select(1, idx)
+        return r.masked_fill_(~live[None, :, None, None], 0)
+    pos = torch.where(live, t, -1).to(torch.int32)
+    return {"k": ring(k), "v": ring(v),
+            "pos": pos[None].expand(B, W).contiguous()}
 
 
 def decode_attention(p, x, cache, cfg, positions, *, rope=True,
@@ -328,7 +330,7 @@ def paged_decode_attention(p, x, pool, cfg, positions, page_table, *,
     return _out_proj(p, o, cfg), pool
 
 
-def paged_suffix_attention(p, x, pool, cfg, positions, pt_row, *,
+def paged_suffix_attention(p, x, pool, cfg, positions, pt_row, end, *,
                            rope=True, window: Optional[int] = None):
     """Suffix-only prefill against the shared page pool (prefix sharing).
 
@@ -338,7 +340,9 @@ def paged_suffix_attention(p, x, pool, cfg, positions, pt_row, *,
     written into the slot's pages (in place), then every suffix query
     attends over the slot's whole table expansion, masked to its causal
     position.  No TPU kernel covers this path: plain tensor ops, as in the
-    JAX package.  Returns (out (1,S,d), pool)."""
+    JAX package.  ``end`` (an int or a (1,) int64 tensor) is the first
+    position past the real suffix: a right-padded suffix's padded K/V
+    land on the trash page.  Returns (out (1,S,d), pool)."""
     kv, dh = cfg.n_kv_heads, cfg.d_head
     q, k_new, v_new = _qkv(p, x, cfg, positions, rope)       # (1,S,.,dh)
     P, ps = pool["k"].shape[0], pool["k"].shape[1]
@@ -346,7 +350,7 @@ def paged_suffix_attention(p, x, pool, cfg, positions, pt_row, *,
     row = pt_row.long()
     tpos = positions[0].long()                               # (S,)
     pg = row[(tpos // ps).clamp(0, MP - 1)]
-    pg = torch.where(pg >= 0, pg, P - 1)                     # FREE -> trash
+    pg = torch.where((pg >= 0) & (tpos < end), pg, P - 1)   # FREE, padded
     pool["k"][pg, tpos % ps] = k_new[0].to(pool["k"].dtype)
     pool["v"][pg, tpos % ps] = v_new[0].to(pool["v"].dtype)
     pt = torch.where(row >= 0, row, P - 1)
@@ -354,7 +358,9 @@ def paged_suffix_attention(p, x, pool, cfg, positions, pt_row, *,
     vg = pool["v"][pt].reshape(1, MP * ps, kv, dh)
     t = torch.arange(MP * ps, device=x.device)[None, None, :]
     qpos = positions.long()[:, :, None]                      # (1,S,1)
-    valid = (t <= qpos) & (torch.repeat_interleave(row, ps) >= 0)[None, None]
+    # each table entry once a token (an expand: no host-sized repeat)
+    alloc = (row >= 0)[:, None].expand(MP, ps).reshape(MP * ps)
+    valid = (t <= qpos) & alloc[None, None]
     if window is not None:
         valid &= qpos - t < window
     o = _sdpa(q, kg, vg, valid, cfg)

@@ -74,7 +74,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models import xlstm as X
 from repro_torch.models.cache_ops import (DEFAULT_PAGE_SIZE, PackedKV,
-                                          paged_geometry, pages_for)
+                                          paged_geometry, pages_for,
+                                          put_row, slot_row)
 
 Params = Dict[str, Any]
 ATTN_MIXERS = ("attn", "attn_full")
@@ -111,6 +112,12 @@ def _entries(cfg: ModelConfig) -> List[str]:
 
 def _mixers(cfg: ModelConfig) -> List[str]:
     return [e.split(":")[0] for e in _entries(cfg)]
+
+
+def has_moe(cfg: ModelConfig) -> bool:
+    """Whether any layer's ffn is ``moe`` (its serving prefill reads the
+    expert counts to the host, which a CUDA graph cannot hold)."""
+    return any(e.split(":")[1] == "moe" for e in _entries(cfg))
 
 
 # ===================================================================== init
@@ -250,23 +257,27 @@ def _cross_kv(p: Params, enc_out, cfg: ModelConfig):
 def _apply_layer_full(lp: Params, x, cfg: ModelConfig, entry: str,
                       positions, kernel_impl: str = "kernel", *,
                       enc_out=None, cache_len: Optional[int] = None,
-                      moe_cf=None):
+                      moe_cf=None, length=None):
     """One layer over a whole sequence whose positions are 0..S-1: the
     mixer, its residual (and cross-attention in an encdec layer) and the
     ffn block.  Returns (x, state, aux): state is the attention (k, v)
     (B,S,kv,dh) (encdec: ``{"self": (k, v), "xk", "xv"}``) or the
     recurrent layer's final state; aux is None unless the ffn is ``moe``.
     ``cache_len`` picks ``attn_full``'s window past the long-context
-    threshold."""
+    threshold.  ``length`` ((1,) int64 tensor): x is right-padded past
+    that many rows and a recurrent layer returns its state at ``length``
+    (attention needs nothing: causal masking keeps the real rows exact)."""
     mixer = entry.split(":")[0]
     h = L.apply_norm(lp["norm1"], x, cfg)
+    at = {} if length is None else {"length": length}
     if mixer == "rec":
-        a, state = R.apply_rec(lp["rec"], h, cfg, kernel_impl=kernel_impl)
+        a, state = R.apply_rec(lp["rec"], h, cfg, kernel_impl=kernel_impl,
+                               **at)
     elif mixer == "mlstm":
         a, state = X.apply_mlstm(lp["mlstm"], h, cfg,
-                                 kernel_impl=kernel_impl)
+                                 kernel_impl=kernel_impl, **at)
     elif mixer == "slstm":
-        a, state = X.apply_slstm(lp["slstm"], h, cfg)
+        a, state = X.apply_slstm(lp["slstm"], h, cfg, **at)
     else:
         a, state = L.full_attention(
             lp["attn"], h, cfg, positions, rope=cfg.rope_pct > 0.0,
@@ -300,7 +311,7 @@ def n_positions(cfg: ModelConfig, batch: Dict[str, Any]) -> int:
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             build_cache: bool = False, cache_len: Optional[int] = None,
             moe_cf=1.25, kernel_impl: str = "kernel",
-            last_only: bool = False) -> Dict[str, Any]:
+            last_only: bool = False, length=None) -> Dict[str, Any]:
     """Train / prefill forward.  batch: {"tokens": (B, S_text)} plus
     "patches" (B, n_patches, d) (vlm: placed before the text) or
     "frames" (B, enc_seq, d) (encdec: the encoder's input); positions are
@@ -313,11 +324,16 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     ``last_only``: the engines read no other row, and at a 256k vocabulary
     the full tensor is gigabytes) plus, with ``build_cache``, "kv": per
     layer the ``_apply_layer_full`` state.  ``kernel_impl``: see
-    ``models.layers``.  No gradient is recorded: ``train_forward`` is the
-    same computation with one."""
+    ``models.layers``.  ``length`` (a (1,) int64 tensor, None = S) is the
+    real position count of a batch right-padded to a length bucket (the
+    engines' captured prefills): ``last_only`` then reads row length-1,
+    and recurrent layers return their state at ``length``; rows past it
+    are computed and ignored.  No gradient is recorded:
+    ``train_forward`` is the same computation with one."""
     return _forward(cfg, params, batch, build_cache=build_cache,
                     cache_len=cache_len, moe_cf=moe_cf,
-                    kernel_impl=kernel_impl, last_only=last_only)
+                    kernel_impl=kernel_impl, last_only=last_only,
+                    length=length)
 
 
 def train_forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
@@ -343,7 +359,7 @@ def _without_state(layer, x):
 def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
              build_cache: bool = False, cache_len: Optional[int] = None,
              moe_cf=1.25, kernel_impl: str = "kernel",
-             last_only: bool = False, remat: bool = False):
+             last_only: bool = False, remat: bool = False, length=None):
     tokens = batch["tokens"]
     B, S = tokens.shape[0], n_positions(cfg, batch)
     patches = batch.get("patches") if cfg.n_patches else None
@@ -357,7 +373,7 @@ def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         layer = functools.partial(
             _apply_layer_full, lp, cfg=cfg, entry=entry,
             positions=positions, kernel_impl=kernel_impl, enc_out=enc_out,
-            cache_len=cache_len or S, moe_cf=moe_cf)
+            cache_len=cache_len or S, moe_cf=moe_cf, length=length)
         if remat:
             x, a = checkpoint(_without_state, layer, x, use_reentrant=False)
         else:
@@ -367,7 +383,7 @@ def _forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         if a is not None:
             aux = aux + a
     if last_only:
-        x = x[:, -1:]
+        x = x[:, -1:] if length is None else x.index_select(1, length - 1)
     out: Dict[str, Any] = {"logits": _unembed(cfg, params, x), "aux": aux}
     if build_cache:
         out["kv"] = kv
@@ -490,13 +506,15 @@ def _batch_rows(entry):
     return entry.shape[0], entry.device
 
 
-def cache_from_prefill(cfg: ModelConfig, kv, max_len: int, n_tokens: int):
+def cache_from_prefill(cfg: ModelConfig, kv, max_len: int, n_tokens):
     """The striped decode cache of a prefill batch, from
     ``forward(build_cache=True)["kv"]``: each attention layer's K/V become
     its ring (the last W tokens at their ring slots when the sequence is
     longer than the ring), an encdec layer keeps its cross-attention K/V,
     each recurrent layer's final state is kept, and every row's position
-    is ``n_tokens``, the prefill's position count (patches + text)."""
+    is ``n_tokens``, the prefill's position count (patches + text): an
+    int, or a (1,) int64 tensor when the prefill was right-padded past it
+    (``forward(length=...)``; the rings then hold real positions only)."""
     layers = []
     for mixer, entry in zip(_mixers(cfg), kv):
         if mixer in STATE_MIXERS:
@@ -504,18 +522,17 @@ def cache_from_prefill(cfg: ModelConfig, kv, max_len: int, n_tokens: int):
             continue
         cross = entry if cfg.family == "encdec" else None
         k, v = cross["self"] if cross is not None else entry
-        B, S = k.shape[0], k.shape[1]
-        positions = torch.arange(S, device=k.device).expand(B, S)
         ring = L.kv_cache_from_prefill(
-            cfg, k, v, positions, max_len,
+            cfg, k, v, n_tokens, max_len,
             window=_ring_width(cfg, mixer, max_len))
         if cross is not None:
             ring = {"self": ring, "xk": cross["xk"], "xv": cross["xv"]}
         layers.append(ring)
     B, dev = _batch_rows(kv[0])
-    return {"layers": layers,
-            "pos": torch.full((B,), n_tokens, dtype=torch.int32,
-                              device=dev)}
+    pos = (n_tokens.to(torch.int32).expand(B).clone()
+           if isinstance(n_tokens, torch.Tensor)
+           else torch.full((B,), n_tokens, dtype=torch.int32, device=dev))
+    return {"layers": layers, "pos": pos}
 
 
 # ============================================================== batch maker
@@ -583,8 +600,15 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, *, page_size=None,
                                 device=dev)}
 
 
-def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row,
-                          n_tokens: int):
+def _clamp(x, lo: int, hi: int):
+    """``x`` (an int or a tensor) clamped to [lo, hi]."""
+    if isinstance(x, torch.Tensor):
+        return x.clamp(lo, hi)
+    return max(min(x, hi), lo)
+
+
+def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot, pt_row,
+                          n_tokens):
     """Write a batch-1 prefill of an ``n_tokens``-token prompt
     (``forward(build_cache=True)["kv"]``) into ``slot``, in place:
     attention K/V straight into the slot's pages, recurrent state into the
@@ -594,29 +618,40 @@ def paged_prefill_scatter(cfg: ModelConfig, cache, kv, slot: int, pt_row,
     match it byte for byte outside the trash page.  Every prompt token is
     written, also those a window has left behind (the JAX package writes
     only its ring's last W): decode masks them, so the outputs are the
-    same.  Unallocated table entries land on the trash page."""
+    same.  Unallocated table entries land on the trash page.
+
+    ``slot`` and ``n_tokens`` are ints, or (1,) int64 tensors (one graph
+    serves every slot and length of a bucket): the prefill may then be
+    right-padded past ``n_tokens``, and the padded rows' K/V, and the
+    pages wholly past the prompt, land on the trash page."""
     attn = [(pool, e) for pool, e, mixer in zip(cache["layers"], kv,
                                                  _mixers(cfg))
             if mixer in ATTN_MIXERS]
     for state, e, mixer in zip(cache["layers"], kv, _mixers(cfg)):
         if mixer in STATE_MIXERS:
             for name, dst in state.items():
-                dst[slot] = e[name][0].to(dst.dtype)
-    cache["pos"][slot] = n_tokens
+                put_row(dst, slot, e[name])
+    put_row(cache["pos"], slot, n_tokens)
     if not attn:
         return cache
     MP = pt_row.shape[0]
     P, ps = attn[0][0]["k"].shape[:2]
-    npg = max(min(-(-n_tokens // ps), MP), 1)
+    S = attn[0][1][0].shape[1]               # the (padded) prefill length
+    npg = max(min(-(-S // ps), MP), 1)       # pages the prefill spans
+    live = _clamp((n_tokens + ps - 1) // ps, 1, MP)   # pages the prompt has
     row = pt_row[:npg].long()
-    pg = torch.where(row >= 0, row, P - 1)
-    n = min(n_tokens, npg * ps)
+    pg = torch.where((row >= 0)
+                     & (torch.arange(npg, device=row.device) < live),
+                     row, P - 1)
+    pad = torch.arange(npg * ps, device=row.device) >= n_tokens
+    n = min(S, npg * ps)
     for pool, (k, v) in attn:
         for name, src in (("k", k), ("v", v)):
             dst = pool[name]
             pages = torch.zeros((npg * ps,) + tuple(dst.shape[2:]),
                                 dtype=dst.dtype, device=dst.device)
             pages[:n] = src[0, :n].to(dst.dtype)
+            pages.masked_fill_(pad[:, None, None], 0)
             dst[pg] = pages.reshape((npg, ps) + tuple(dst.shape[2:]))
     return cache
 
@@ -633,7 +668,7 @@ def supports_prefix_sharing(cfg: ModelConfig) -> bool:
 
 @torch.no_grad()
 def paged_suffix_prefill(cfg: ModelConfig, params: Params, cache, tokens,
-                         slot: int, start: int):
+                         slot, start, n_tokens=None):
     """Prefill ONLY the un-cached suffix of a prompt whose shared prefix
     already sits in ``slot``'s leading pages (prefix sharing).
 
@@ -641,24 +676,31 @@ def paged_suffix_prefill(cfg: ModelConfig, params: Params, cache, tokens,
     positions run start..start+S-1.  Each layer writes the suffix K/V into
     the slot's pages and attends suffix queries over the slot's table.
     A ``moe`` ffn runs the grouped form with no drops, as every serving
-    prefill does.  Returns (last-position logits (1, V), cache)."""
+    prefill does.  ``slot``, ``start`` and ``n_tokens`` (the real suffix
+    length, default S) are ints or (1,) int64 tensors: a suffix
+    right-padded past ``n_tokens`` writes its padded K/V to the trash
+    page and reads its logits at row n_tokens-1.  Returns (last real
+    position's logits (1, V), cache)."""
     if not supports_prefix_sharing(cfg):
         raise NotImplementedError(f"suffix prefill covers attention-only "
                                   f"configs, not {cfg.arch_id}")
     S = tokens.shape[1]
-    pt_row = cache["pages"][slot]
+    pt_row = slot_row(cache["pages"], slot)
     positions = (start + torch.arange(S, device=tokens.device))[None]
+    end = start + (S if n_tokens is None else n_tokens)
     rope = cfg.rope_pct > 0.0
     x = _embed_tokens(cfg, params, tokens, positions)
     for lp, pool, mixer in zip(params["layers"], cache["layers"],
                                _mixers(cfg)):
         h = L.apply_norm(lp["norm1"], x, cfg)
         a, _ = L.paged_suffix_attention(
-            lp["attn"], h, pool, cfg, positions, pt_row, rope=rope,
+            lp["attn"], h, pool, cfg, positions, pt_row, end, rope=rope,
             window=_mixer_window(cfg, mixer))
         x, _ = _ffn_block(lp, x + a, cfg, grouped=True)
-    logits = _unembed(cfg, params, x)[:, -1]
-    cache["pos"][slot] = start + S
+    last = (x[:, -1:] if n_tokens is None
+            else x.index_select(1, n_tokens - 1))
+    logits = _unembed(cfg, params, last)[:, 0]
+    put_row(cache["pos"], slot, end)
     return logits, cache
 
 

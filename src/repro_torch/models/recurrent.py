@@ -49,13 +49,27 @@ def init_rec_state(cfg, batch, dtype, device):
                                 device=device)}
 
 
-def _causal_conv(w, u, conv_state):
-    """Depthwise causal conv. u: (B,S,d); returns (out, new_state)."""
+def _causal_conv(w, u, conv_state, length=None):
+    """Depthwise causal conv. u: (B,S,d); returns (out, new_state), the
+    state being the last cw-1 inputs, or with ``length`` (a (1,) int64
+    tensor: the real rows of a right-padded u) the cw-1 inputs before
+    row ``length``, read by a device index."""
     cw = w.shape[0]
     hist = torch.cat([conv_state.to(u.dtype), u], dim=1)   # (B, S+cw-1, d)
     S = u.shape[1]
     out = sum(hist[:, j:j + S] * w[j] for j in range(cw))
-    return out, hist[:, hist.shape[1] - (cw - 1):]
+    if length is None:
+        return out, hist[:, hist.shape[1] - (cw - 1):]
+    return out, hist.index_select(
+        1, length + torch.arange(cw - 1, device=u.device))
+
+
+def at_length(seq, length):
+    """Row ``length - 1`` of ``seq`` (B,S,...) along axis 1, by a device
+    index ((1,) int64 tensor), or the last row when ``length`` is None."""
+    if length is None:
+        return seq[:, -1]
+    return seq.index_select(1, length - 1)[:, 0]
 
 
 def _gates(p, u_conv):
@@ -73,20 +87,24 @@ def _gelu(x):
 
 
 def apply_rec(p, x, cfg, state: Optional[dict] = None, *,
-              kernel_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
+              kernel_impl: str = "kernel",
+              length=None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence mode. x: (B,S,d) -> (out, final_state).
-    ``kernel_impl``: see ``models.layers``."""
+    ``kernel_impl``: see ``models.layers``.  ``length`` ((1,) int64
+    tensor): x is right-padded past that many rows, and the state is the
+    one at ``length`` (h read at row length-1, the conv window from the
+    last real inputs)."""
     B, S, d = x.shape
     if state is None:
         state = init_rec_state(cfg, B, x.dtype, x.device)
     u = x @ p["w_x"]
-    u_conv, conv_state = _causal_conv(p["conv"], u, state["conv"])
+    u_conv, conv_state = _causal_conv(p["conv"], u, state["conv"], length)
     a, b = _gates(p, u_conv)                             # (B,S,d) fp32 each
     scan = rglru_scan if kernel_impl == "kernel" else rglru_scan_ref
     h = scan(a, b, upcast(state["h"]))                   # (B,S,d) fp32
     y = _gelu(upcast(x @ p["w_y"]))
     out = (y * h).to(x.dtype) @ p["w_out"]
-    return out, {"h": h[:, -1], "conv": conv_state}
+    return out, {"h": at_length(h, length), "conv": conv_state}
 
 
 def write_state(state: dict, new: dict) -> dict:

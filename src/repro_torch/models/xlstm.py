@@ -30,7 +30,7 @@ from repro_torch.kernels import mlstm_chunkwise
 from repro_torch.kernels.ref import NEG_INF as NEG
 from repro_torch.kernels.ref import acc_dtype, mlstm_chunkwise_ref, upcast
 from repro_torch.models.layers import const, dense_init
-from repro_torch.models.recurrent import (_causal_conv, _gelu,
+from repro_torch.models.recurrent import (_causal_conv, _gelu, at_length,
                                            write_state)
 
 _F32 = torch.float32
@@ -116,15 +116,19 @@ def _mlstm_chunk(q, k, v, i_pre, f_pre, state, inplace: bool = False):
     return h.to(q.dtype), (C_new, n_new, m_new)
 
 
-def _mlstm_qkvif(p, x, cfg, conv_state):
+def _mlstm_qkvif(p, x, cfg, conv_state, length=None):
     """Shared front end. x: (B,S,d).  Returns q, k, v (B,H,S,dh), i, f
-    (B,H,S) fp32, z (B,S,di) and the new conv state."""
+    (B,H,S) fp32, z (B,S,di) and the new conv state.  With ``length``
+    ((1,) int64 tensor; x right-padded past it) every padded step is the
+    identity of the stabilised recurrence: input gate log -1e30 and
+    forget gate log 0 (pre-activation +1e30) leave m, C and n as they
+    were, bit for bit, and the conv state is the one at ``length``."""
     B, S, _ = x.shape
     di, H = cfg.d_inner, cfg.n_heads
     dh = di // H
     uz = x @ p["w_up"]
     u, z = uz[..., :di], uz[..., di:]
-    c, conv_state = _causal_conv(p["conv"], u, conv_state)
+    c, conv_state = _causal_conv(p["conv"], u, conv_state, length)
     c = F.silu(c)
     ch = c.reshape(B, S, H, dh)
     uh = u.reshape(B, S, H, dh)
@@ -136,6 +140,10 @@ def _mlstm_qkvif(p, x, cfg, conv_state):
     cf = upcast(c)
     i_pre = (cf @ p["w_i"] + p["b_i"]).transpose(1, 2)
     f_pre = (cf @ p["w_f"] + p["b_f"]).transpose(1, 2)
+    if length is not None:
+        pad = torch.arange(S, device=x.device) >= length
+        i_pre = i_pre.masked_fill(pad, NEG)
+        f_pre = f_pre.masked_fill(pad, -NEG)
     return q, k, v, i_pre, f_pre, z, conv_state
 
 
@@ -155,16 +163,20 @@ def _mlstm_out(p, h, z, cfg):
 
 
 def apply_mlstm(p, x, cfg, state: Optional[dict] = None, *,
-                kernel_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
+                kernel_impl: str = "kernel",
+                length=None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence (chunkwise) mode. x: (B,S,d) -> (out, final state).
-    ``kernel_impl``: see ``models.layers``."""
+    ``kernel_impl``: see ``models.layers``.  ``length``: x is
+    right-padded past that many rows and the state is the one at
+    ``length`` (``_mlstm_qkvif``)."""
     if state is None:       # fresh: no conv history, the scan's zero carry
         conv = torch.zeros((x.shape[0], cfg.conv_width - 1, cfg.d_inner),
                            dtype=x.dtype, device=x.device)
         carry = None
     else:
         conv, carry = state["conv"], (state["C"], state["n"], state["m"])
-    q, k, v, i_pre, f_pre, z, conv_state = _mlstm_qkvif(p, x, cfg, conv)
+    q, k, v, i_pre, f_pre, z, conv_state = _mlstm_qkvif(p, x, cfg, conv,
+                                                        length)
     scan = mlstm_chunkwise if kernel_impl == "kernel" else mlstm_chunkwise_ref
     h, (C, n, m) = scan(q, k, v, i_pre, f_pre, carry)
     return _mlstm_out(p, h, z, cfg), {"C": C, "n": n, "m": m,
@@ -236,18 +248,27 @@ def _slstm_out(p, h, x):
     return _gelu(h.to(x.dtype) @ p["w_up"]) @ p["w_down"]
 
 
-def apply_slstm(p, x, cfg, state: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence mode: a loop over S. x: (B,S,d)."""
+def apply_slstm(p, x, cfg, state: Optional[dict] = None, *,
+                length=None) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence mode: a loop over S. x: (B,S,d).  ``length`` ((1,)
+    int64 tensor; x right-padded past it): the state is the one after
+    row length-1, read from the stacked per-step states by a device
+    index (a padded step moves h, so it cannot be made the identity)."""
     B, S, _ = x.shape
     if state is None:
         state = init_slstm_state(cfg, B, x.dtype, x.device)
     pre = _slstm_pre(p, x)
-    hs = []
+    steps = []
     for t in range(S):
         state = _slstm_step(p, pre[:, :, t], state, cfg.n_heads)
-        hs.append(state["h"])
-    return _slstm_out(p, torch.stack(hs, dim=1), x), state
+        steps.append(state)
+    hs = torch.stack([st["h"] for st in steps], dim=1)
+    if length is not None:
+        state = {name: hs if name == "h" else
+                 torch.stack([st[name] for st in steps], dim=1)
+                 for name in state}
+        state = {name: at_length(seq, length) for name, seq in state.items()}
+    return _slstm_out(p, hs, x), state
 
 
 def apply_slstm_step(p, x, cfg, state, *,

@@ -38,11 +38,30 @@ Everything that writes the cache between ticks (prefill scatter, suffix
 prefill, copy-on-write, adoption) writes in place.  The fused step sizes
 its split by the table's MP·ps, so one graph serves every page count,
 and the decode kernels bound their walks by each slot's length: the JAX
-engine's per-bucket executables are not needed.
+engine's per-bucket decode executables are not needed.
+
+Prefills are compiled the same way, per length bucket, as the JAX
+package compiles one prefill executable per prompt length: a prompt (or
+a shared-prefix suffix) is right-padded to ``prefill_bucket(n)`` tokens
+and its real length, slot and suffix start are staged in place into
+one-element device tensors, so one step body (forward with
+``length=``, scatter, first token into ``_tok``, the slot's position)
+serves every slot and every length of its bucket, exactly: causal
+masking keeps the real rows, padded K/V land on the trash page or
+outside the ring, and recurrent state is read at the real length.  On a
+CUDA device each bucket's first prefill runs eagerly and is then
+captured (``prefill_graphs``, one memory pool for all buckets of the
+engine); later prefills of the bucket are replays.  A config with a
+``moe`` ffn keeps its prefill eager (the grouped form reads the expert
+counts to the host); its decode tick is captured all the same.  The CPU
+runs the same padded bodies eagerly.  ``InferenceEngine`` pads nothing:
+it compiles its prefill and its decode step per exact batch shape.
 """
 from __future__ import annotations
 
+import functools
 import itertools
+from collections import OrderedDict
 from typing import (TYPE_CHECKING, Any, Dict, List, Optional, Sequence,
                     Tuple)
 
@@ -53,14 +72,14 @@ from repro_torch.core.mode_switch import handoff_requests
 from repro_torch.kernels import graph
 from repro_torch.models import (DEFAULT_PAGE_SIZE, PackedKV, PageTable,
                                 PrefixIndex, cache_from_prefill,
-                                cache_gather, cache_scatter, decode_step,
-                                decode_step_inplace, forward, init_cache,
-                                init_paged_cache, n_positions,
+                                cache_gather, cache_scatter,
+                                decode_step_inplace, forward, has_moe,
+                                init_cache, init_paged_cache, n_positions,
                                 pack_single_cache, paged_adopt_scatter,
                                 paged_copy_page, paged_geometry, paged_pack,
                                 paged_prefill_scatter, paged_suffix_prefill,
                                 pages_for, supports_prefix_sharing)
-from repro_torch.models.cache_ops import _leaves
+from repro_torch.models.cache_ops import _leaf_map, _leaves, slot_row
 from repro_torch.serving.scheduler import (DEFAULT_SLOTS, AdmissionPolicy,
                                            Scheduler, SeqState, SlotState)
 
@@ -72,12 +91,47 @@ _HANDOFF_BATCH = itertools.count(1)
 if TYPE_CHECKING:                                    # pragma: no cover
     from repro_torch.serving.workload import SLOClass
 
+# the shortest prefill length bucket, in tokens
+MIN_BUCKET = 16
+# the batch shapes an ``InferenceEngine`` keeps (static inputs, cache,
+# graphs), and the batch entries it stages
+MAX_SHAPES = 4
+_STATIC_INPUTS = ("tokens", "patches", "frames")
+# ``ContinuousBatchingEngine.decode_graphs``'s one key
+_TICK = "tick"
+
+
+def prefill_bucket(n: int, cap: int) -> int:
+    """The length an ``n``-token prefill is right-padded to: the next
+    power of two from MIN_BUCKET, at most ``cap`` (and never below n).
+    So an engine holds at most log2(cap / 16) + 2 prefill graphs of a
+    kind."""
+    b = max(MIN_BUCKET, 1 << max(n - 1, 0).bit_length())
+    return max(n, min(b, cap))
+
+
+def _scalar(device) -> torch.Tensor:
+    """A one-element int64 device tensor: a step input staged in place."""
+    return torch.zeros((1,), dtype=torch.int64, device=device)
+
 
 class InferenceEngine:
     """Static-batch reference engine: one prefill, fixed decode loop over
     the striped ring cache.  Batches carry "patches" (vlm) or "frames"
     (encdec) beside "tokens"; MoE layers drop nothing.  ``kernel_impl``:
-    see ``models.layers``."""
+    see ``models.layers``.
+
+    The prefill step (forward, the striped cache written in place into
+    the engine's cache for the batch's shape) and the decode step
+    (``decode_step_inplace`` on that cache) are CUDA graphs on a CUDA
+    device, captured at the first use of their key, which is the batch's
+    exact shape, as ``jax.jit`` keys the JAX engine's executables: (text
+    shape, cache length, extra inputs).  Nothing is padded: ``generate``'s
+    cache length is the text plus the new tokens, so a length bucket
+    would still key one graph per text length.  ``prefill_graphs`` share
+    one memory pool, ``decode_graphs`` another; the engine keeps the
+    inputs, cache and graphs of its MAX_SHAPES most recent shapes.  A MoE
+    config's prefill stays eager."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int = 4096,
                  kernel_impl: str = "kernel"):
@@ -85,18 +139,82 @@ class InferenceEngine:
         self.params = params
         self.max_len = max_len
         self.kernel_impl = kernel_impl
+        self.device = params["embed"].device
+        self.prefill_graphs = graph.StepGraphs(self.device,
+                                               capturing=not has_moe(cfg))
+        self.decode_graphs = graph.StepGraphs(self.device)
+        # shape key -> {"batch": static inputs, "cache", "tok"}, the most
+        # recently used last
+        self._shapes: "OrderedDict[Tuple, Dict[str, Any]]" = OrderedDict()
+
+    def _shape(self, batch: Dict, cache_len: int) -> Tuple:
+        """The key of ``batch``'s shape, its static inputs staged from
+        ``batch``; the least recently used shape beyond MAX_SHAPES is
+        dropped with its graphs."""
+        inputs = {k: batch[k] for k in _STATIC_INPUTS
+                  if batch.get(k) is not None}
+        key = (cache_len,) + tuple((k, tuple(v.shape), v.dtype)
+                                   for k, v in inputs.items())
+        st = self._shapes.pop(key, None)
+        if st is None:
+            B = batch["tokens"].shape[0]
+            st = {"batch": {k: torch.empty(v.shape, dtype=v.dtype,
+                                           device=self.device)
+                            for k, v in inputs.items()},
+                  "cache": init_cache(self.cfg, B, cache_len,
+                                      dtype=self.params["embed"].dtype,
+                                      device=self.device),
+                  "tok": torch.zeros((B,), dtype=torch.int64,
+                                     device=self.device)}
+        self._shapes[key] = st
+        while len(self._shapes) > MAX_SHAPES:
+            old, _ = self._shapes.popitem(last=False)
+            self.prefill_graphs.drop(old)
+            self.decode_graphs.drop(old)
+        for k, v in inputs.items():
+            st["batch"][k].copy_(v)
+        return key
+
+    def _prefill(self, batch: Dict, cache_len: int) -> Tuple[Tuple, Any]:
+        """Stage ``batch`` and run its shape's prefill step: (the shape's
+        key, last-position logits (B, V), a static output of the step's
+        graph); the shape's cache holds the prefill."""
+        key = self._shape(batch, cache_len)
+        st = self._shapes[key]
+
+        def body():
+            out = forward(self.cfg, self.params, st["batch"],
+                          build_cache=True, cache_len=cache_len,
+                          moe_cf=None, kernel_impl=self.kernel_impl,
+                          last_only=True)
+            _leaf_map(torch.Tensor.copy_, st["cache"], cache_from_prefill(
+                self.cfg, out["kv"], cache_len,
+                n_positions(self.cfg, st["batch"])))
+            return out["logits"][:, -1]
+        return key, self.prefill_graphs.run(
+            key, body, [*st["batch"].values(), *_leaves(st["cache"])])
 
     def prefill(self, batch: Dict, cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, dict]:
         """Last-position logits (B, V) and the striped decode cache of
         length ``cache_len``, positioned after the prefill's last position
-        (patches + tokens)."""
-        cache_len = cache_len or self.max_len
-        out = forward(self.cfg, self.params, batch, build_cache=True,
-                      cache_len=cache_len, moe_cf=None,
-                      kernel_impl=self.kernel_impl, last_only=True)
-        return out["logits"][:, -1], cache_from_prefill(
-            self.cfg, out["kv"], cache_len, n_positions(self.cfg, batch))
+        (patches + tokens): copies, which the engine's later steps do not
+        touch."""
+        key, logits = self._prefill(batch, cache_len or self.max_len)
+        return logits.clone(), _leaf_map(torch.clone,
+                                         self._shapes[key]["cache"])
+
+    def _decode(self, key: Tuple, tok: torch.Tensor) -> torch.Tensor:
+        """One decode step, in place, of shape ``key``'s cache on the
+        tokens ``tok`` (B,); returns the logits (B, V), a static output of
+        the step's graph."""
+        st = self._shapes[key]
+        st["tok"].copy_(tok)
+        return self.decode_graphs.run(
+            key, lambda: decode_step_inplace(self.cfg, self.params,
+                                             st["cache"], st["tok"],
+                                             kernel_impl=self.kernel_impl),
+            [st["tok"], *_leaves(st["cache"])])
 
     def generate(self, batch: Dict, max_new_tokens: int, *,
                  greedy: bool = True,
@@ -112,15 +230,12 @@ class InferenceEngine:
         keep them)."""
         if not greedy and generator is None:
             raise ValueError("sampling needs a torch.Generator")
-        logits, cache = self.prefill(
-            batch,
-            cache_len=cache_len or batch["tokens"].shape[1] + max_new_tokens)
+        key, logits = self._prefill(
+            batch, cache_len or batch["tokens"].shape[1] + max_new_tokens)
         tok = self._sample(logits, greedy, generator, temperature)
         toks = [tok]
         for _ in range(1, max_new_tokens):
-            logits, cache = decode_step(self.cfg, self.params, cache, tok,
-                                        cache["pos"],
-                                        kernel_impl=self.kernel_impl)
+            logits = self._decode(key, tok)
             tok = self._sample(logits, greedy, generator, temperature)
             toks.append(tok)
         return torch.stack(toks, dim=1)
@@ -159,8 +274,12 @@ class ContinuousBatchingEngine:
 
     On a CUDA device every decode tick after the first is one replay of
     the engine's captured decode graph (``decode_graph``), which holds a
-    private memory pool until the engine is freed.  Nothing may replace a cache leaf (``cache``'s tensors are
-    updated in place); a replaced leaf makes the next tick raise.
+    private memory pool until the engine is freed, and every fresh or
+    suffix prefill after the first of its length bucket is one replay of
+    that bucket's graph (``prefill_graphs``, keyed ("fresh" or "suffix",
+    bucket), one shared pool; eager for a MoE config).  Nothing may
+    replace a cache leaf (``cache``'s tensors are updated in place); a
+    replaced leaf makes the next tick raise.
     """
 
     def __init__(self, cfg: ModelConfig, params, *,
@@ -223,8 +342,17 @@ class ContinuousBatchingEngine:
                                 device=self.device)
         # the table upload last copied into cache["pages"]
         self._table_src: Optional[torch.Tensor] = None
-        # the captured decode tick (CUDA only, after the first tick)
-        self.decode_graph: Optional[graph.CapturedStep] = None
+        # the decode tick, captured at the first tick (CUDA only), in a
+        # memory pool of its own
+        self.decode_graphs = graph.StepGraphs(self.device)
+        # the prefill steps' static inputs: the real length, the slot and
+        # the suffix start (shared by every bucket), the right-padded
+        # tokens (one buffer a bucket); and their graphs, per bucket
+        self._n, self._slot, self._start = (_scalar(self.device)
+                                            for _ in range(3))
+        self._tokens: Dict[int, torch.Tensor] = {}
+        self.prefill_graphs = graph.StepGraphs(self.device,
+                                               capturing=not has_moe(cfg))
         self._next_id = 0
         # lazily-resolved token ids: (seq, index, slot, device tensor).
         # EOS-terminated sequences need token values at schedule time, so
@@ -328,69 +456,106 @@ class ContinuousBatchingEngine:
         """The tensors the decode step reads and writes from outside."""
         return [self._tok, *_leaves(self.cache)]
 
+    @property
+    def decode_graph(self) -> Optional[graph.CapturedStep]:
+        """The captured decode tick, or None before the first tick (or
+        off CUDA)."""
+        return self.decode_graphs.steps.get(_TICK)
+
+    @decode_graph.setter
+    def decode_graph(self, step: graph.CapturedStep) -> None:
+        self.decode_graphs.steps[_TICK] = step
+
     def _decode_tick(self) -> None:
-        if self.decode_graph is not None:
-            self.decode_graph.replay(self._graph_inputs())
-        elif self.device.type == "cuda":
-            # the first tick, eagerly on a side stream (the warm-up a
-            # capture needs), then the capture, which runs nothing; the
-            # streams are joined both ways, so every launch on this device
-            # stays serialised (the decode kernels share their counters)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._decode_body()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self.decode_graph = graph.capture(
-                self._decode_body, self._graph_inputs(), self.device)
+        self.decode_graphs.run(_TICK, self._decode_body,
+                               self._graph_inputs())
+
+    # ------------------------------------------------------- the prefills
+    def _fresh_body(self, tokens: torch.Tensor) -> torch.Tensor:
+        """A fresh prefill of the staged prompt (``tokens`` right-padded
+        past ``_n``) into slot ``_slot``, in place: the cache scatter, the
+        first token into ``_tok`` and the slot's position.  Returns the
+        first token (1,)."""
+        out = forward(self.cfg, self.params, {"tokens": tokens},
+                      build_cache=True, cache_len=self.max_len, moe_cf=None,
+                      kernel_impl=self.kernel_impl, last_only=True,
+                      length=self._n)
+        first = out["logits"][:, -1].argmax(-1)
+        if self.paged:
+            paged_prefill_scatter(self.cfg, self.cache, out["kv"],
+                                  self._slot,
+                                  slot_row(self.cache["pages"], self._slot),
+                                  self._n)
         else:
-            self._decode_body()
+            cache_scatter(self.cache,
+                          cache_from_prefill(self.cfg, out["kv"],
+                                             self.max_len, self._n),
+                          self._slot)
+        self._tok.index_copy_(0, self._slot, first)
+        return first
+
+    def _suffix_body(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The suffix prefill of the staged suffix (``_n`` real tokens at
+        positions ``_start``...) into slot ``_slot``; as ``_fresh_body``."""
+        logits, _ = paged_suffix_prefill(self.cfg, self.params, self.cache,
+                                         tokens, self._slot, self._start,
+                                         n_tokens=self._n)
+        first = logits.argmax(-1)
+        self._tok.index_copy_(0, self._slot, first)
+        return first
+
+    def _prefill_step(self, kind: str, slot: int,
+                      toks: Sequence[int]) -> torch.Tensor:
+        """Stage ``toks`` right-padded into their bucket's buffer, their
+        count and ``slot``, and run the ``kind`` prefill of the bucket (a
+        graph replay after its first use on CUDA).  Returns a copy of the
+        first token (1,)."""
+        n = len(toks)
+        Sb = prefill_bucket(n, self.max_len)
+        tokens = self._tokens.get(Sb)
+        if tokens is None:
+            tokens = self._tokens[Sb] = torch.zeros(
+                (1, Sb), dtype=torch.int64, device=self.device)
+        host = torch.tensor([list(toks) + [0] * (Sb - n)],
+                            dtype=torch.int64)
+        if self.device.type == "cuda":
+            host = host.pin_memory()     # no host wait on the device
+        tokens.copy_(host, non_blocking=True)
+        self._n.fill_(n)
+        self._slot.fill_(slot)
+        body = self._suffix_body if kind == "suffix" else self._fresh_body
+        first = self.prefill_graphs.run(
+            (kind, Sb), functools.partial(body, tokens),
+            [tokens, self._n, self._slot, self._start, self._tok,
+             *_leaves(self.cache)])
+        return first.clone()
 
     def _do_prefill(self, slot: int, seq: SeqState) -> None:
         toks = seq.tokens_so_far
         shared = seq.shared_tokens if self.prefix_sharing else 0
-        if shared:
-            # the scheduler's bind() attached the cached prefix run to
-            # this slot; prefill covers only the suffix.  A mid-page
-            # divergence forks the partially-matched page first (CoW:
-            # the suffix writes into it, and other owners must never see
-            # those writes).
+        if self.paged:
             if shared % self.page_size:
+                # the scheduler's bind() attached the cached prefix run to
+                # this slot; prefill covers only the suffix.  A mid-page
+                # divergence forks the partially-matched page first (CoW:
+                # the suffix writes into it, and other owners must never
+                # see those writes).
                 old, new = self.pages.fork(slot, shared // self.page_size)
                 if old != new:
                     paged_copy_page(self.cfg, self.cache, old, new)
             self.pages.ensure(slot, len(toks))
             self._sync_table()
-            suffix = torch.tensor([toks[shared:]], dtype=torch.int64,
-                                  device=self.device)
-            logits, _ = paged_suffix_prefill(
-                self.cfg, self.params, self.cache, suffix, slot, shared)
-            first = logits.argmax(-1)
+        if shared:
+            self._start.fill_(shared)
+            first = self._prefill_step("suffix", slot, toks[shared:])
         else:
-            tokens = torch.tensor([toks], dtype=torch.int64,
-                                  device=self.device)
-            out = forward(self.cfg, self.params, {"tokens": tokens},
-                          build_cache=True, cache_len=self.max_len,
-                          moe_cf=None, kernel_impl=self.kernel_impl,
-                          last_only=True)
-            first = out["logits"][0, -1:].argmax(-1)
-            if self.paged:
-                self.pages.ensure(slot, len(toks))
-                self._sync_table()
-                paged_prefill_scatter(self.cfg, self.cache, out["kv"], slot,
-                                      self.cache["pages"][slot], len(toks))
-            else:
-                cache_scatter(self.cache,
-                              cache_from_prefill(self.cfg, out["kv"],
-                                                 self.max_len, len(toks)),
-                              slot)
+            first = self._prefill_step("fresh", slot, toks)
         if self.prefix_sharing:
             # index the prompt's immutable pages so later prompts can
             # share them; decode never appends into an indexed page
             # (first append position >= len(prompt))
             self.pages.prefix.insert(self.pages, seq.prompt,
                                      self.pages.slot_pages(slot))
-        self._stage_token(slot, first[0])
         self.sched.on_prefilled(slot, self._record(seq, 0, first))
 
     def step(self) -> bool:

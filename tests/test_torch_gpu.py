@@ -1044,6 +1044,40 @@ def test_pipelined_forward_across_cards(cuda):
     torch.testing.assert_close(out.to(cuda), ref, atol=1e-4, rtol=1e-4)
 
 
+
+@pytest.mark.gpu
+def test_pipelined_graphs_across_cards(cuda):
+    """The same pipeline through ``PipelineGraphs`` (one stage's graphs a
+    card, the hand-offs between them outside the graphs), two ticks: the
+    second replays every stage and the head, and both equal the eager
+    ``pipelined_forward`` bitwise, with equal flash launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import pipelined_forward, stage_params
+    from repro_torch.distributed.pipeline import PipelineGraphs
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_params
+    n = _cards(2)
+    cfg = reduced(get_config("qwen2.5-3b"), d_model=64, n_layers=8)
+    params = init_params(cfg, seed=2, device=cuda)
+    stages = stage_params(cfg, params, n, [f"cuda:{i}" for i in range(n)])
+    graphs = PipelineGraphs(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 512, (4, 40))).to(cuda)
+    last = torch.tensor([39, 0, 17, 25], device=cuda)
+    want = pipelined_forward(cfg, stages, {"tokens": tokens}, 2, last=last)
+    for _ in range(2):
+        before = flash_attention.launches
+        got = pipelined_forward(cfg, stages, {"tokens": tokens}, 2,
+                                last=last, graphs=graphs)
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        assert flash_attention.launches - before == 2 * cfg.n_layers
+        assert torch.equal(got, want)
+    assert len(graphs) == n + 1 and len(graphs.graphs) == n
+    # a stage: capture, then 3 replays (2 microbatches a tick); the head 1
+    assert all(s.replays == (1 if k[0] == "head" else 3)
+               for g in graphs.graphs.values() for k, s in g.steps.items())
+
 # ------------------------------------------------------------ live cluster
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
@@ -1427,3 +1461,226 @@ def test_kernel_wrapper_refuses_grad_inputs(cuda):
         out = flash_attention(q, k, k)
     assert flash_attention.launches == before + 1
     assert not out.requires_grad
+
+
+# ------------------------------------------------ the compiled prefills
+PREFILL_ARCHS = {"qwen2.5-3b": None, "recurrentgemma-2b": 5, "xlstm-1.3b": None}
+
+
+def _prefill_twins(arch, paged, dev, n_layers=None):
+    """Two reduced ``arch`` engines on the same fp32 weights: the first
+    captures its prefill steps per length bucket, the second runs the
+    same padded steps eagerly."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import graph
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine
+    cfg = reduced(get_config(arch), d_model=128,
+                  n_layers=n_layers or PREFILL_ARCHS.get(arch))
+    params = init_params(cfg, seed=4, device=dev)
+    kw = {"page_size": 16} if paged else {}
+    twins = [ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
+                                      paged=paged, max_prefill_per_tick=2,
+                                      **kw) for _ in range(2)]
+    twins[1].prefill_graphs = graph.StepGraphs(dev, capturing=False)
+    return cfg, twins
+
+
+def _same_state(a, b):
+    """Every cache leaf bitwise equal (the pools without their trash
+    page, which padded rows write in no fixed order), and ``_tok``."""
+    assert torch.equal(a._tok, b._tok)
+    assert torch.equal(a.cache["pos"], b.cache["pos"])
+    for i, (x, y) in enumerate(zip(a.cache["layers"], b.cache["layers"])):
+        for name in x:
+            if "k" in x and a.paged:
+                assert torch.equal(x[name][:-1], y[name][:-1]), (i, name)
+            else:
+                assert torch.equal(x[name], y[name]), (i, name)
+
+
+def _prefill_trace(vocab, arch):
+    """Prompts whose buckets repeat (replays), two lengths a bucket, and
+    for the dense arch prompts sharing 37 tokens of a 40-token prefix
+    (suffixes after a mid-page fork: a suffix graph and its replay)."""
+    rng = np.random.default_rng(8)
+    tok = lambda n: list(map(int, rng.integers(0, vocab, n)))  # noqa: E731
+    base = tok(40)
+    prompts = [base + tok(5), tok(50), tok(33), tok(100), tok(120)]
+    if arch == "qwen2.5-3b":
+        prompts += [base[:37] + tok(13), base[:37] + tok(9),
+                    base[:37] + tok(11)]
+    return [(p, 4 + i % 3) for i, p in enumerate(prompts)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "striped"])
+@pytest.mark.parametrize("arch", sorted(PREFILL_ARCHS))
+def test_prefill_graph_replays_equal_eager_steps(cuda, arch, paged,
+                                                monkeypatch):
+    """One trace through both twins, tick by tick: after every tick the
+    caches are bitwise equal and so are the launch counts of the tick
+    (a replay adds what its capture recorded); fresh (and, dense paged,
+    suffix) prefills were replayed, in one memory pool.  The RG-LRU scan
+    runs one chunk a chain: its look-back adds carries in arrival order,
+    so two runs of the chunked scan may differ in the last bits."""
+    from repro_torch.kernels import reset_launch_counts
+    monkeypatch.setattr(rglru_scan, "force_chunks", 1)
+    cfg, (g, e) = _prefill_twins(arch, paged, cuda)
+    for eng in (g, e):
+        for i, (p, n) in enumerate(_prefill_trace(cfg.vocab_size, arch)):
+            eng.submit(p, n, req_id=i)
+    while True:
+        counts = []
+        for eng in (g, e):
+            reset_launch_counts()
+            ran = eng.step()
+            torch.cuda.synchronize()
+            counts.append({k.__name__: k.launches for k in KERNELS})
+        assert counts[0] == counts[1]
+        _same_state(g, e)
+        if not ran:
+            break
+    g.flush(), e.flush()
+    assert {r: s.generated for r, s in g.sched.finished.items()} == \
+        {r: s.generated for r, s in e.sched.finished.items()}
+    steps = g.prefill_graphs.steps
+    assert len(e.prefill_graphs) == 0 and ("fresh", 64) in steps
+    assert steps[("fresh", 64)].replays >= 1
+    if arch == "qwen2.5-3b" and paged:
+        assert g.stats["shared_tokens"] > 0
+        assert steps[("suffix", 16)].replays >= 1
+    assert {s.graph.pool() for s in steps.values()} == \
+        {g.prefill_graphs.pool}
+    assert g.decode_graph.graph.pool() != g.prefill_graphs.pool
+    assert all(s.capture_s > 0 for s in steps.values())
+
+
+@pytest.mark.gpu
+def test_prefill_graph_stale_address_raises(cuda):
+    """A cache leaf replaced after a bucket's capture: the next prefill of
+    that bucket raises instead of replaying on the old address."""
+    _, (g, _) = _prefill_twins("qwen2.5-3b", True, cuda)
+    g.pages.ensure(0, 20)
+    g._sync_table()
+    g._prefill_step("fresh", 0, list(range(1, 21)))
+    assert ("fresh", 32) in g.prefill_graphs.steps
+    g.cache["pos"] = g.cache["pos"].clone()
+    with pytest.raises(RuntimeError, match="stale CUDA graph"):
+        g._prefill_step("fresh", 1, list(range(1, 25)))
+
+
+@pytest.mark.gpu
+def test_prefill_scratch_grows_only_outside_a_capture(cuda, monkeypatch):
+    """The RG-LRU scan's status scratch, dropped first, grows at the eager
+    warm-up of each larger bucket and never inside a capture, and the
+    captured graphs of the smaller buckets still replay equal to eager."""
+    import importlib
+    from repro_torch.kernels import _build
+    scan = importlib.import_module("repro_torch.kernels.rglru_scan")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    old = scan._STATUS.pop(dev, None)
+    if old is not None:
+        _build._retired.extend(old)     # graphs of earlier tests hold it
+    grown = []
+    orig = _build.grow_scratch
+
+    def watched(old, make, what):
+        grown.append(torch.cuda.is_current_stream_capturing())
+        return orig(old, make, what)
+    monkeypatch.setattr(_build, "grow_scratch", watched)
+    monkeypatch.setattr(rglru_scan, "force_chunks", 1)   # one sum order
+    cfg, (g, e) = _prefill_twins("recurrentgemma-2b", True, cuda)
+    rng = np.random.default_rng(9)
+    for slot, n in enumerate((20, 30, 200, 25)):     # buckets 32, 256, 32
+        toks = list(map(int, rng.integers(0, cfg.vocab_size, n)))
+        firsts = []
+        for eng in (g, e):
+            eng.pages.ensure(slot, n)
+            eng._sync_table()
+            firsts.append(eng._prefill_step("fresh", slot, toks))
+        torch.cuda.synchronize()
+        assert torch.equal(*firsts)
+        _same_state(g, e)
+    assert grown and not any(grown)
+    assert g.prefill_graphs.steps[("fresh", 32)].replays == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "pixtral-12b",
+                                  "whisper-large-v3"])
+def test_static_engine_graphs_equal_eager(cuda, arch):
+    """``InferenceEngine`` with its prefill and decode captured against
+    the same engine with both eager, two ``generate`` calls each (the
+    second all replays): the same tokens, the same engine cache bitwise
+    and the same launch counts; a pixtral batch carries patches, a
+    whisper batch its frames."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import graph, reset_launch_counts
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.serving import InferenceEngine
+    cfg = reduced(get_config(arch), d_model=128)
+    params = init_params(cfg, seed=6, device=cuda)
+    g, e = InferenceEngine(cfg, params), InferenceEngine(cfg, params)
+    e.prefill_graphs = graph.StepGraphs(cuda, capturing=False)
+    e.decode_graphs = graph.StepGraphs(cuda, capturing=False)
+    for seed in (7, 8):
+        batch = make_batch(cfg, 2, 27 + (cfg.n_patches or 0), seed=seed,
+                           device=cuda)
+        out, counts = [], []
+        for eng in (g, e):
+            reset_launch_counts()
+            out.append(eng.generate(batch, 8))
+            torch.cuda.synchronize()
+            counts.append({k.__name__: k.launches for k in KERNELS})
+        assert torch.equal(*out) and counts[0] == counts[1]
+        for x, y in zip(g._shapes.values(), e._shapes.values()):
+            for a, b in zip(_leaves_of(x["cache"]), _leaves_of(y["cache"])):
+                assert torch.equal(a, b)
+    assert len(g.prefill_graphs) == 1 and len(g.decode_graphs) == 1
+    assert next(iter(g.decode_graphs.steps.values())).replays == 7 + 6
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves_of(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves_of(v)
+    else:
+        yield tree
+
+
+@pytest.mark.gpu
+def test_pipelined_tick_graphs_equal_eager(cuda):
+    """The λPipe tick (four stages and the head on one card, two
+    microbatches) through ``PipelineGraphs`` twice, the second all
+    replays, against the eager ``pipelined_forward``: bitwise equal
+    logits and equal launch counts."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import (PipelinedEngine, pipelined_forward,
+                                         stage_params)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init_params
+    cfg = reduced(get_config("qwen2.5-3b"), d_model=128, n_layers=4)
+    params = init_params(cfg, seed=7, device=cuda)
+    stages = stage_params(cfg, params, 4, [cuda] * 4)
+    pipe = PipelinedEngine.from_stages(cfg, stages, n_microbatches=2,
+                                       n_slots=4, max_len=128, pad_to=16)
+    rng = np.random.default_rng(10)
+    for _ in range(2):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (4, 48))).to(cuda)
+        last = torch.tensor([47, 3, 20, 31], device=cuda)
+        reset_launch_counts()
+        got = pipe.forward_fn(tokens, last)
+        torch.cuda.synchronize()
+        n_got = flash_attention.launches
+        reset_launch_counts()
+        want = pipelined_forward(cfg, stages, {"tokens": tokens}, 2,
+                                 last=last)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert n_got == flash_attention.launches == 4 * 2
+    assert len(pipe.graphs) == 5            # four stages and the head
