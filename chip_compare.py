@@ -6,6 +6,11 @@
       decode entry point at its timed bf16 shape, built as it is and with
       the merge skipped, timed in turns; DIR is the checkout whose
       ``src/repro_torch`` is measured (default: this one).
+  python3 chip_compare.py split-share [--tree DIR]
+      the fp32 flash kernel's 3xTF32 split of its K and V fragments:
+      ``flash_attention`` in fp32 at ``chip_smoke.py``'s fp32 serving
+      shapes, built as it is and with those fragments fed to the mma
+      unsplit (wrong results; a timing only), in turns.
   python3 chip_compare.py serving DIR [--phases 3,5,7]
       ``chip_smoke.py``'s bf16 serving phases (3 qwen2.5-3b, 5
       recurrentgemma-2b, 7 xlstm-1.3b), each checkout's own, run from DIR
@@ -23,6 +28,13 @@
       tokens) in DIR and in this checkout, each held to an fp32 reference
       of the same weights: last-position logit error and argmax agreement
       of the kernel path and of the bf16 plain path.
+
+  python3 chip_compare.py flash [--tree DIR]
+      ``flash_attention`` in fp32 and bf16 at ``chip_smoke.py``'s fp32
+      serving shapes (``FLASH_TIMED``: qwen2.5-3b, recurrentgemma-2b,
+      stablelm-1.6b, whisper's encoder), by graph replay, checkout DIR's
+      and this one's in fresh processes in the order DIR, this, this, DIR
+      (this, this without DIR), with SDPA in fp32 timed in each.
 
   python3 chip_compare.py cluster DIR
       ``chip_smoke.py``'s live cluster of phase 10a (qwen2.5-3b and
@@ -88,21 +100,97 @@ def skip_merge_sources(csrc: Path, dest: Path) -> None:
                                f"header: the merge was not found")
 
 
-def merge_share(tree: Path) -> dict:
-    """Each entry point's device time (``chip_smoke.graph_ms``) built as it
-    is and with the merge skipped, in turns (as is, skipped, skipped, as
-    is); the merge's time is the difference of the means.  Beside it the
-    eager per-call time of the as-is build (``chip_smoke.time_ms``), the
-    host's enqueue rate for kernels this short."""
+# The patch that feeds the fp32 flash kernel's K and V fragments to the
+# mma unsplit (the fp32 value as both big and small part): what the split
+# of the fragments each warp reads costs.  It rewrites every split into a
+# B fragment (b_big*, b_small*); Q's (a_*) and P's (p_*) splits stay.
+SKIP_SPLIT = (re.compile(r"split_tf32\(([^;]+), (b_big\w*), (b_small\w*)\);"),
+              r"\2 = \3 = __float_as_uint(\1);")
+
+
+def skip_split_sources(csrc: Path, dest: Path) -> None:
+    """Copy ``csrc`` to ``dest`` with ``SKIP_SPLIT`` applied to
+    ``flash_attention.cu``; raises if it finds no split to skip."""
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(csrc, dest)
+    path = dest / "flash_attention.cu"
+    text, n = SKIP_SPLIT[0].subn(SKIP_SPLIT[1], path.read_text())
+    if n == 0:
+        raise RuntimeError("SKIP_SPLIT: no K or V split found in "
+                           "flash_attention.cu")
+    path.write_text(text)
+
+
+def import_port(tree: Path):
+    """Put this checkout's ``chip_smoke.py`` and ``tree``'s ``src`` first on
+    the path; raises unless ``repro_torch`` then comes from ``tree``."""
     sys.path[:0] = [str(ROOT), str(tree / "src")]
-    import torch
-    import chip_smoke as c
-    from repro_torch.kernels import (_build, decode_attention,
-                                     paged_decode_attention,
-                                     paged_decode_step)
+    from repro_torch.kernels import _build
     if Path(_build.__file__).resolve().parents[3] != tree.resolve():
         raise RuntimeError(f"repro_torch imported from {_build.__file__}, "
                            f"not from {tree}")
+
+
+def patched_times(cases, patch, name: str, iters: int) -> dict:
+    """Each case's device ms (``chip_smoke.graph_ms``) built from the
+    sources as they are and from a copy that ``patch(csrc, dest)`` made
+    under ``name`` in the build directory, in turns (as is, patched,
+    patched, as is): {case: (as-is mean, patched mean, as-is runs,
+    patched runs)}."""
+    import chip_smoke as c
+    from repro_torch.kernels import _build
+    csrc = _build.CSRC
+    dest = _build.BUILD_DIR / name
+    patch(csrc, dest)
+    runs = {k: ([], []) for k in cases}
+    try:
+        for patched in (False, True, True, False):
+            _build.CSRC = dest if patched else csrc
+            _build._libs.clear()
+            _build.n_split.cache_clear()
+            for k, fn in cases.items():
+                runs[k][patched].append(c.graph_ms(fn, iters=iters))
+    finally:
+        _build.CSRC = csrc
+        _build._libs.clear()
+        _build.n_split.cache_clear()
+    return {k: (sum(a) / 2, sum(b) / 2, a, b) for k, (a, b) in runs.items()}
+
+
+def split_share(tree: Path) -> None:
+    """fp32 flash at each ``FLASH_TIMED`` shape built as it is and with the
+    K/V splits skipped; the splits' share is the difference of the
+    means."""
+    import_port(tree)
+    import torch
+    import chip_smoke as c
+    from repro_torch.kernels import flash_attention
+    cases = {}
+    for key, (H, KVH, S, dh, causal, window) in c.FLASH_TIMED.items():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v = (torch.randn((1, h, S, dh), generator=gen, device="cuda")
+                   for h in (H, KVH, KVH))
+        cases[key] = (lambda q=q, k=k, v=v, causal=causal, window=window:
+                      flash_attention(q, k, v, causal=causal, window=window))
+    times = patched_times(cases, skip_split_sources, "csrc_skip_split", 10)
+    for k, (ms, bare, a, b) in times.items():
+        print(f"[split] flash fp32 {k} {c.FLASH_TIMED[k]}: {ms:.5f} ms, K/V "
+              f"splits skipped {bare:.5f} ms, splits {ms - bare:.5f} ms = "
+              f"{100 * (ms - bare) / ms:.1f}% (runs {a} / {b})", flush=True)
+    print(c.smi(), flush=True)
+
+
+def merge_share(tree: Path) -> dict:
+    """Each decode entry point built as it is and with the merge skipped;
+    the merge's time is the difference of the means.  Beside it the eager
+    per-call time of the as-is build (``chip_smoke.time_ms``), the host's
+    enqueue rate for kernels this short."""
+    import_port(tree)
+    import torch
+    import chip_smoke as c
+    from repro_torch.kernels import (decode_attention,
+                                     paged_decode_attention,
+                                     paged_decode_step)
     gen = torch.Generator(device="cuda").manual_seed(17)
     W = 2048
     ring = c._ring_inputs(gen, 8, 10, 1, W, 256,
@@ -134,32 +222,16 @@ def merge_share(tree: Path) -> dict:
             step_r["table"], step_r["lens"], window=2048),
         "paged_decode_attention qwen": lambda: paged_decode_attention(
             ro["q"], *nxt(pools_ro), ro["table"], ro["lens"])}
-    csrc = _build.CSRC
-    skip = _build.BUILD_DIR / "csrc_skip_merge"
-    skip_merge_sources(csrc, skip)
-    times = {k: {"ms": [], "no_merge_ms": []} for k in cases}
-    try:
-        for variant in ("ms", "no_merge_ms", "no_merge_ms", "ms"):
-            _build.CSRC = csrc if variant == "ms" else skip
-            _build._libs.clear()
-            _build.n_split.cache_clear()
-            for k, fn in cases.items():
-                times[k][variant].append(c.graph_ms(fn, iters=100))
-        enqueue = {k: c.time_ms(fn, iters=200) for k, fn in cases.items()}
-    finally:
-        _build.CSRC = csrc
-        _build._libs.clear()
-        _build.n_split.cache_clear()
+    times = patched_times(cases, skip_merge_sources, "csrc_skip_merge", 100)
+    enqueue = {k: c.time_ms(fn, iters=200) for k, fn in cases.items()}
     out = {}
-    for k, t in times.items():
-        ms = sum(t["ms"]) / 2
-        bare = sum(t["no_merge_ms"]) / 2
+    for k, (ms, bare, a, b) in times.items():
         out[k] = {"ms": ms, "no_merge_ms": bare, "merge_ms": ms - bare,
                   "share": (ms - bare) / ms, "enqueue_ms": enqueue[k]}
         print(f"[merge] {k}: {ms:.5f} ms, merge skipped {bare:.5f} ms, "
               f"merge {ms - bare:.5f} ms = {100 * (ms - bare) / ms:.1f}%; "
-              f"eager {enqueue[k]:.5f} ms a call (runs {t['ms']} / "
-              f"{t['no_merge_ms']})", flush=True)
+              f"eager {enqueue[k]:.5f} ms a call (runs {a} / {b})",
+              flush=True)
     print(c.smi(), flush=True)
     return out
 
@@ -250,36 +322,98 @@ _build.build_all(["rglru_scan"])
 res = c.scan_times(rglru_scan, [int(x) for x in counts.split(",") if x])
 json.dump(res, open(out_path, "w"))
 """
+# One checkout's flash times at FLASH_TIMED (chip_smoke._time_flash of
+# THIS checkout, the flash wrapper of the checkout in the working
+# directory): {shape: {"float32", "bfloat16", "sdpa_fp32": ms}}, as JSON
+# to argv[1]; argv[2] is this checkout's root.
+FLASH = r"""
+import json, sys
+from pathlib import Path
+out_path, root = sys.argv[1], sys.argv[2]
+sys.path[:0] = [root, "src"]
+import torch
+import chip_smoke as c
+from repro_torch.kernels import _build
+if Path(_build.__file__).resolve().parents[3] != Path.cwd().resolve():
+    raise RuntimeError(f"repro_torch imported from {_build.__file__}")
+_build.build_all(["flash_attention"])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+res = {}
+for key, (H, KVH, S, dh, causal, window) in c.FLASH_TIMED.items():
+    t = {dt: c._time_flash(H, KVH, S, dh, dt, causal=causal, window=window,
+                           iters=c.FLASH_ITERS.get(key, 50))
+         for dt in ("float32", "bfloat16")}
+    res[key] = {"float32": t["float32"]["ms"], "bfloat16": t["bfloat16"]["ms"],
+                "sdpa_fp32": t["float32"]["library_ms"]}
+json.dump(res, open(out_path, "w"))
+"""
 TOKS = re.compile(r"^\[serve\] ([^:]+):.*?= ([0-9.]+) tok/s")
+LOGDIR = ROOT / "chiprun_out" / "compare"
 
 
-def serve_once(tree: Path, phases, label: str, logdir: Path) -> dict:
-    """One fresh process of ``tree``'s serving phases: {"tok_s": {path:
-    tok/s}, "tokens": ..., "launches": ...}; its output goes to
-    ``logdir/<label>.log`` and its tokens to ``logdir/<label>.json``."""
-    out_path = logdir / f"{label}.json"
-    proc = subprocess.run([sys.executable, "-c", SERVE, str(out_path),
-                           *phases], cwd=tree, capture_output=True, text=True)
-    (logdir / f"{label}.log").write_text(proc.stdout + proc.stderr)
+def fresh(script: str, tree: Path, label: str, *argv):
+    """Run ``script`` in a fresh Python process from ``tree``'s root, with
+    argv[1] the path of a JSON file for its result and ``argv`` after it;
+    its output goes to ``LOGDIR/<label>.log``.  Returns (its standard
+    output, its JSON result or None); raises if it failed."""
+    LOGDIR.mkdir(parents=True, exist_ok=True)
+    out_path = LOGDIR / f"{label}.json"
+    out_path.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, "-c", script, str(out_path),
+                           *map(str, argv)], cwd=tree, capture_output=True,
+                          text=True)
+    (LOGDIR / f"{label}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"{label}: serving phases {phases} failed (rc "
-                           f"{proc.returncode}):\n{proc.stderr[-4000:]}")
-    res = json.loads(out_path.read_text())
+        raise RuntimeError(f"{label} failed (rc {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return proc.stdout, (json.loads(out_path.read_text())
+                         if out_path.exists() else None)
+
+
+def in_turns(other, once) -> dict:
+    """``once(tree, label)`` for checkout ``other`` and this one in the
+    order other, this, this, other (this, this where ``other`` is None),
+    so that the spread of one checkout's two runs stands beside the
+    difference: {"other": [result, result], "this": [...]}."""
+    order = [("this", ROOT), ("this", ROOT)]
+    if other is not None:
+        order = [("other", other)] + order + [("other", other)]
+    runs = {}
+    for label, tree in order:
+        rs = runs.setdefault(label, [])
+        rs.append(once(tree, f"{label}_{len(rs) + 1}"))
+    return runs
+
+
+def print_means(head: str, runs: dict, pick, unit: str = "ms") -> None:
+    """One line: each checkout's ``pick(result)`` of every run and their
+    mean."""
+    line = f"{head}:"
+    for label, rs in runs.items():
+        xs = [pick(r) for r in rs]
+        line += (f" {label} {[round(x, 5) for x in xs]} mean "
+                 f"{sum(xs) / len(xs):.5f} {unit};")
+    print(line, flush=True)
+
+
+def serve_once(tree: Path, phases, label: str) -> dict:
+    """One fresh process of ``tree``'s serving phases: {"tok_s": {path:
+    tok/s}, "tokens": ..., "launches": ...}."""
+    stdout, res = fresh(SERVE, tree, label, *phases)
     res["tok_s"] = {m.group(1): float(m.group(2))
-                    for m in map(TOKS.match, proc.stdout.splitlines()) if m}
+                    for m in map(TOKS.match, stdout.splitlines()) if m}
     print(f"[serving] {label}: " + "; ".join(
         f"{k} {v}" for k, v in res["tok_s"].items()), flush=True)
     return res
 
 
 def serving(other: Path, phases) -> None:
-    logdir = ROOT / "chiprun_out" / "compare"
-    logdir.mkdir(parents=True, exist_ok=True)
     again = [p for p in phases if p != "7"]
-    a1 = serve_once(other, phases, "other_1", logdir)
-    b1 = serve_once(ROOT, phases, "this_1", logdir)
-    b2 = serve_once(ROOT, again, "this_2", logdir) if again else b1
-    a2 = serve_once(other, again, "other_2", logdir) if again else a1
+    a1 = serve_once(other, phases, "other_1")
+    b1 = serve_once(ROOT, phases, "this_1")
+    b2 = serve_once(ROOT, again, "this_2") if again else b1
+    a2 = serve_once(other, again, "other_2") if again else a1
     for path in a1["tok_s"]:
         ta = [r["tok_s"][path] for r in (a1, a2) if path in r["tok_s"]]
         tb = [r["tok_s"][path] for r in (b1, b2) if path in r["tok_s"]]
@@ -305,16 +439,8 @@ def serving(other: Path, phases) -> None:
         print("[serving] phase 7 ran once per checkout", flush=True)
 
 
-def scan_once(tree: Path, counts: str, label: str, logdir: Path) -> dict:
-    out_path = logdir / f"scan_{label}.json"
-    proc = subprocess.run([sys.executable, "-c", SCAN, str(out_path),
-                           str(ROOT), counts], cwd=tree, capture_output=True,
-                          text=True)
-    (logdir / f"scan_{label}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{label}: scan timing failed (rc "
-                           f"{proc.returncode}):\n{proc.stderr[-4000:]}")
-    res = json.loads(out_path.read_text())
+def scan_once(tree: Path, counts: str, label: str) -> dict:
+    _, res = fresh(SCAN, tree, f"scan_{label}", ROOT, counts)
     print(f"[scan] {label}: " + "; ".join(
         f"{k} {v['ms']:.5f} ms (eager {v['enqueue_ms']:.5f}; "
         f"{v['chunks']} chunks)" for k, v in res.items()), flush=True)
@@ -327,43 +453,41 @@ def scan_once(tree: Path, counts: str, label: str, logdir: Path) -> dict:
 
 
 def scan(other, counts: str) -> None:
-    """Each checkout's scan by graph replay, in turns in fresh processes:
-    the spread of one checkout's two runs beside the difference."""
+    """Each checkout's scan by graph replay, in turns in fresh processes;
+    the forced chunk counts in this checkout's first run."""
     import chip_smoke as c
-    logdir = ROOT / "chiprun_out" / "compare"
-    logdir.mkdir(parents=True, exist_ok=True)
-    runs = {"this": []}
-    if other is not None:
-        runs["other"] = [scan_once(other, "", "other_1", logdir)]
-    runs["this"].append(scan_once(ROOT, counts, "this_1", logdir))
-    runs["this"].append(scan_once(ROOT, "", "this_2", logdir))
-    if other is not None:
-        runs["other"].append(scan_once(other, "", "other_2", logdir))
+    runs = in_turns(other, lambda tree, label: scan_once(
+        tree, counts if label == "this_1" else "", label))
     for key, (B, S, d, dt) in c.SCAN_TIMED.items():
-        line = f"[scan] B={B} S={S} d={d} {dt}:"
-        for label, rs in runs.items():
-            ms = [r[key]["ms"] for r in rs]
-            line += (f" {label} {[round(x, 5) for x in ms]} mean "
-                     f"{sum(ms) / len(ms):.5f} ms;")
-        print(line, flush=True)
+        print_means(f"[scan] B={B} S={S} d={d} {dt}", runs,
+                    lambda r: r[key]["ms"])
+    print(c.smi(), flush=True)
+
+
+def flash_once(tree: Path, label: str) -> dict:
+    _, res = fresh(FLASH, tree, f"flash_{label}", ROOT)
+    print(f"[flash] {label}: " + "; ".join(
+        f"{k} fp32 {v['float32']:.5f} bf16 {v['bfloat16']:.5f} SDPA fp32 "
+        f"{v['sdpa_fp32']:.5f} ms" for k, v in res.items()), flush=True)
+    return res
+
+
+def flash(other) -> None:
+    """Each checkout's flash by graph replay, in turns in fresh
+    processes."""
+    import chip_smoke as c
+    runs = in_turns(other, flash_once)
+    for key, shape in c.FLASH_TIMED.items():
+        for what in ("float32", "bfloat16", "sdpa_fp32"):
+            print_means(f"[flash] {key} {shape} {what}", runs,
+                        lambda r: r[key][what])
     print(c.smi(), flush=True)
 
 
 def prefill(other: Path, n: int) -> None:
-    logdir = ROOT / "chiprun_out" / "compare"
-    logdir.mkdir(parents=True, exist_ok=True)
     res = {}
     for label, tree in (("other", other), ("this", ROOT)):
-        out_path = logdir / f"prefill_{label}.json"
-        proc = subprocess.run([sys.executable, "-c", PREFILL, str(out_path),
-                               str(n)], cwd=tree, capture_output=True,
-                              text=True)
-        (logdir / f"prefill_{label}.log").write_text(proc.stdout
-                                                     + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{label}: prefill failed (rc "
-                               f"{proc.returncode}):\n{proc.stderr[-4000:]}")
-        r = res[label] = json.loads(out_path.read_text())
+        r = res[label] = fresh(PREFILL, tree, f"prefill_{label}", n)[1]
         for k in ("kernel", "plain"):
             agree = sum(a == b for a, b in zip(r[k]["argmax"],
                                                r["ref_argmax"]))
@@ -393,18 +517,13 @@ TICK = re.compile(r"^\[cluster\] 10a live: \d+ requests, \d+ tokens in "
                   r"([0-9.]+) s wall;.*; ([0-9.]+) ms wall per tick")
 
 
-def cluster_once(tree: Path, label: str, logdir: Path):
+def cluster_once(tree: Path, label: str):
     """One fresh process of ``tree``'s phase 10a: (wall s, ms a tick)."""
-    proc = subprocess.run([sys.executable, "-c", CLUSTER], cwd=tree,
-                          capture_output=True, text=True)
-    (logdir / f"cluster_{label}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{label}: phase 10a failed (rc "
-                           f"{proc.returncode}):\n{proc.stderr[-4000:]}")
-    m = next(filter(None, map(TICK.match, proc.stdout.splitlines())))
+    stdout, _ = fresh(CLUSTER, tree, f"cluster_{label}")
+    m = next(filter(None, map(TICK.match, stdout.splitlines())))
     wall, tick = float(m.group(1)), float(m.group(2))
     print(f"[cluster] {label}: {wall} s wall, {tick} ms a tick", flush=True)
-    for line in proc.stdout.splitlines():
+    for line in stdout.splitlines():
         if "prefill graphs captured" in line:
             print(f"[cluster] {label}: {line}", flush=True)
     return wall, tick
@@ -412,18 +531,10 @@ def cluster_once(tree: Path, label: str, logdir: Path):
 
 def cluster(other: Path) -> None:
     import chip_smoke as c
-    logdir = ROOT / "chiprun_out" / "compare"
-    logdir.mkdir(parents=True, exist_ok=True)
-    runs = {"other": [], "this": []}
-    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT),
-                        ("other", other)):
-        runs[label].append(cluster_once(tree, f"{label}_"
-                                        f"{len(runs[label]) + 1}", logdir))
-    for label, rs in runs.items():
-        print(f"[cluster] {label} ({other.name if label == 'other' else 'this'}"
-              f"): wall {[w for w, _ in rs]} s, ms a tick "
-              f"{[t for _, t in rs]}, mean {sum(t for _, t in rs) / 2:.1f}",
-              flush=True)
+    runs = in_turns(other, cluster_once)
+    print_means(f"[cluster] wall ({other.name} as other)", runs,
+                lambda r: r[0], "s")
+    print_means("[cluster] a tick", runs, lambda r: r[1])
     print(c.smi(), flush=True)
 
 
@@ -432,12 +543,16 @@ def main() -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     m = sub.add_parser("merge-share")
     m.add_argument("--tree", type=Path, default=ROOT)
+    sp = sub.add_parser("split-share")
+    sp.add_argument("--tree", type=Path, default=ROOT)
     s = sub.add_parser("serving")
     s.add_argument("other", type=Path)
     s.add_argument("--phases", default="3,5,7")
     c = sub.add_parser("scan")
     c.add_argument("--tree", type=Path, default=None)
     c.add_argument("--chunks", default="")
+    fl = sub.add_parser("flash")
+    fl.add_argument("--tree", type=Path, default=None)
     k = sub.add_parser("cluster")
     k.add_argument("other", type=Path)
     f = sub.add_parser("prefill")
@@ -454,11 +569,16 @@ def main() -> int:
         return 1
     if args.cmd == "merge-share":
         merge_share(args.tree)
+    elif args.cmd == "split-share":
+        split_share(args.tree)
     elif args.cmd == "scan":
         sys.path.insert(0, str(ROOT))
         scan(args.tree and args.tree.resolve(), args.chunks)
     elif args.cmd == "serving":
         serving(args.other.resolve(), args.phases.split(","))
+    elif args.cmd == "flash":
+        sys.path.insert(0, str(ROOT))
+        flash(args.tree and args.tree.resolve())
     elif args.cmd == "cluster":
         sys.path.insert(0, str(ROOT))
         cluster(args.other.resolve())

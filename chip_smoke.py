@@ -8,21 +8,27 @@ Phases (any failure exits non-zero, with no result line):
      per source, in parallel), print the card's name and power limit and
      each kernel's registers and spills, and count the HMMA (tensor-core)
      instructions of every kernel in ``cuobjdump -sass``: each bf16
-     flash, decode-walk and mLSTM kernel must have some, their fp32
+     flash, decode-walk and mLSTM kernel and the fp32 flash kernel (3xTF32
+     on tf32 ``mma``) must have some, the fp32 decode-walk and mLSTM
      kernels none (``MMA_KERNELS``);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, at the test tolerances (2e-5 and 2e-2 for
      attention, 1e-4 and 5e-2 for the RG-LRU scan), at the serving paths'
      shapes and at the edge cases (for the fused step also one and two
      slots with long lens, the split walk's few-slot ticks; for flash also
-     head dims the bf16 kernel pads); time the kernel on the device (CUDA
-     graph replay; the per-call enqueue time of eager launches beside it),
+     head dims the kernels pad; fp32 flash also against an fp64 run, at
+     most FLASH_FP64_FACTOR times the fp32 plain version's error); time
+     the kernel on the device (CUDA graph replay; the per-call enqueue
+     time of eager launches beside it),
      its plain version and, where one exists, a PyTorch library call
      computing the same function (a yardstick the port never calls);
-     flash is timed in bf16 and fp32 (two kernels), the ring decode also
-     at qwen2.5-3b's striped shape, mLSTM also at a 128-token prompt,
+     flash is timed in bf16 and fp32 (two kernels; fp32 at every fp32
+     serving shape, ``FLASH_TIMED``, beside SDPA in fp32 and the name of
+     the kernel SDPA launches, read by ``torch.profiler``), the ring decode
+     also at qwen2.5-3b's striped shape, mLSTM also at a 128-token prompt,
      the scan at four shapes (``SCAN_TIMED``) with its inputs cycled past
-     the L2 and the chunk count each one used;
+     the L2 and the chunk count each one used; the decode walks and the
+     mLSTM also in fp32 at their main shapes (CUDA cores);
   3. serve full-width qwen2.5-3b (36 layers, d_model 2048, random bf16
      weights from a seed) through ``ContinuousBatchingEngine`` with prefix
      sharing on, then through ``InferenceEngine`` and the striped
@@ -189,22 +195,37 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
+# dense, per type; "tf32x3": fp32 products as three TF32 tensor-core
+# products (495 TFLOP/s), the fp32 flash kernel's
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernel_fuzz.py
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py
 MARGIN = 1e-3                  # top-2 logit margin for the fp32 check
+FLASH_FP64_FACTOR = 4.0        # fp32 flash vs fp64: x the plain fp32 error
 N_LAYERS = 36                  # qwen2.5-3b: every layer is attention
 HYBRID_ATTN, HYBRID_REC = 8, 18   # recurrentgemma-2b's 26 layers
 SSM_MLSTM, SSM_SLSTM = 42, 6      # xlstm-1.3b's 48 layers
 PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
-# further timed shapes of a kernel, beside its main one: flash's fp32
-# kernel, dh 256, the ring decode at qwen2.5-3b's shape, a short prompt
-# and the scan at a short prompt, the static batch and in bf16; phase
-# 12's families: qwen2-moe, pixtral and llama4 heads, whisper's encoder
-# (flash, non-causal) and decoder (ring decode)
-EXTRA = ("fp32", "dh256", "qwen", "S128", "S256", "B8", "bf16", "moe",
-         "pixtral", "llama4", "whisper_enc", "whisper")
+# further timed shapes of a kernel, beside its main one: each kernel in
+# fp32 (flash's at every fp32 serving shape), dh 256, the ring decode at
+# qwen2.5-3b's shape, a short prompt and the scan at a short prompt, the
+# static batch and in bf16; phase 12's families: qwen2-moe, pixtral and
+# llama4 heads, whisper's encoder (flash, non-causal) and decoder (ring
+# decode)
+EXTRA = ("fp32", "fp32_dh256", "fp32_stablelm", "fp32_whisper_enc", "dh256",
+         "qwen", "S128", "S256", "B8", "bf16", "moe", "pixtral", "llama4",
+         "whisper_enc", "whisper")
+# flash's fp32 serving shapes (H, KVH, S, dh, causal, window): qwen2.5-3b's
+# longest timed prompt, recurrentgemma-2b's (window 2048 = S, so causal:
+# SDPA, the yardstick, takes no window), stablelm-1.6b's in the live
+# cluster, whisper's encoder over 1500 frames
+FLASH_TIMED = {"qwen": (16, 2, 1024, 128, True, None),
+               "dh256": (10, 1, 2048, 256, True, 2048),
+               "stablelm": (32, 32, 512, 64, True, None),
+               "whisper_enc": (20, 20, 1500, 64, False, None)}
+# graph replays (and eager calls) a flash timing takes; 50 at other shapes
+FLASH_ITERS = {"dh256": 10}
 # the scan's timed shapes (B, S, d, dtype): one RG-LRU layer's prefill of a
 # 2048-token prompt, a typical paged prompt, InferenceEngine's static batch
 SCAN_TIMED = {"main": (1, 2048, 2560, "float32"),
@@ -270,6 +291,10 @@ def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def _kind(dtype_name: str) -> str:
+    return "bf16" if dtype_name == "bfloat16" else "fp32"
+
+
 def bound_ms(n_bytes: float, flops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -297,13 +322,14 @@ def hmma_counts(source: str):
     return counts
 
 
-# Kernel functions of each source whose bf16 instantiations run on the
-# tensor cores (HMMA > 0) and whose fp32 ones stay on the CUDA cores (no
-# HMMA): source -> {mangled-name fragment: dtype}.  A "Li0E" template
-# argument is the decode kernels' fp32 walk.
+# Kernel functions of each source that run on the tensor cores (HMMA > 0:
+# every bf16 kernel, and fp32 flash as 3xTF32, "tf32") or stay on the CUDA
+# cores (no HMMA: the fp32 decode walks and mLSTM, "fp32"): source ->
+# {mangled-name fragment: kind}.  A "Li0E" template argument is the
+# decode kernels' fp32 walk.
 MMA_KERNELS = {
     "flash_attention": {"flash_mma_kernel": "bf16",
-                        "flash_attention_kernelIf": "fp32"},
+                        "flash_tf32x3_kernel": "tf32"},
     "decode_attention": {"decode_attention_kernelI13__nv_bfloat16": "bf16",
                          "decode_attention_kernelIfLi0E": "fp32"},
     "paged_decode_step": {
@@ -320,8 +346,8 @@ MMA_KERNELS = {
 
 def check_hmma() -> None:
     """Print the HMMA count of every kernel function of MMA_KERNELS'
-    sources and assert each bf16 one has some and each fp32 one none;
-    every listed fragment must name at least one function."""
+    sources and assert each bf16 and tf32 one has some and each fp32 one
+    none; every listed fragment must name at least one function."""
     for source, kinds in MMA_KERNELS.items():
         counts = hmma_counts(source)
         for frag, kind in kinds.items():
@@ -331,11 +357,11 @@ def check_hmma() -> None:
                                      f"like {frag} in {sorted(counts)}")
             for fn, n in sorted(fns.items()):
                 log(f"[sass {source}] {n} HMMA in {fn} ({kind})")
-                if (n > 0) != (kind == "bf16"):
+                if (n > 0) != (kind != "fp32"):
                     raise AssertionError(
                         f"{source}: {fn} has {n} HMMA instructions; its "
                         f"{kind} kernel must have "
-                        f"{'some' if kind == 'bf16' else 'none'}")
+                        f"{'some' if kind != 'fp32' else 'none'}")
 
 
 # ------------------------------------------------------------ phase 2
@@ -556,6 +582,34 @@ def check_flash(errs, dtype_name):
                    f"S={S} window={window} causal={causal}")
 
 
+def check_flash_fp64():
+    """fp32 flash at ``FLASH_TIMED``'s shapes: the kernel's largest error
+    against the plain version run in fp64, at most FLASH_FP64_FACTOR times
+    the fp32 plain version's own (3xTF32 keeps fp32 accuracy; one TF32
+    product a piece would err ~1e-3)."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for key, (H, KVH, S, dh, causal, window) in FLASH_TIMED.items():
+        x = [torch.randn((1, h, S, dh), generator=gen, device="cuda")
+             for h in (H, KVH, KVH)]
+        got = flash_attention(*x, causal=causal, window=window)
+        plain = flash_attention_ref(*x, causal=causal, window=window)
+        exact = flash_attention_ref(*(t.double() for t in x), causal=causal,
+                                    window=window)
+        e_kernel = (got.double() - exact).abs().max().item()
+        e_plain = (plain.double() - exact).abs().max().item()
+        log(f"[fp64] flash_attention fp32 {key}: max |kernel - fp64| "
+            f"{e_kernel:.4g}, max |plain fp32 - fp64| {e_plain:.4g} (ratio "
+            f"{e_kernel / e_plain:.3g})")
+        if e_kernel > FLASH_FP64_FACTOR * e_plain:
+            raise AssertionError(
+                f"flash_attention fp32 {key}: error {e_kernel:.4g} against "
+                f"fp64 above {FLASH_FP64_FACTOR}x the plain version's "
+                f"{e_plain:.4g}")
+
+
 def check_paged_attention(errs, dtype_name):
     """Read-only paged attention over the decode step's edge set, whose
     lens include 0 (a row with no valid token: the uniform mean over all
@@ -759,23 +813,26 @@ def time_mlstm():
     """One mLSTM layer's prefill at the serving shape: B=1, H=4, a
     1024-token prompt, dh=1024, bf16; and (``"S128"``) a 128-token prompt,
     where most serving prompts are and the 4 MiB-per-head state weighs
-    more."""
+    more; ``"fp32"``: the 1024-token prompt in fp32 (the CUDA-core
+    kernels)."""
     out = _time_mlstm(1024)
     out["S128"] = _time_mlstm(128)
+    out["fp32"] = _time_mlstm(1024, "float32")
     return out
 
 
-def _time_mlstm(S):
+def _time_mlstm(S, dtype_name="bfloat16"):
     """The bound counts the two dh x dh products per token (q C and the
     state update), the causal q k^T and w v products inside each 64-token
-    chunk and the n terms, at the bf16 peak; and each input, h and the
-    final state once in memory."""
+    chunk and the n terms, at the peak of the type; and each input, h and
+    the final state once in memory."""
     import torch
     from repro_torch.kernels import mlstm_chunkwise
     from repro_torch.kernels.ref import MLSTM_CHUNK, mlstm_chunkwise_ref
     B, H, dh = 1, 4, 1024
     gen = torch.Generator(device="cuda").manual_seed(22)
-    args = _mlstm_inputs(gen, B, H, S, dh, "normal", torch.bfloat16)
+    dtype = getattr(torch, dtype_name)
+    args = _mlstm_inputs(gen, B, H, S, dh, "normal", dtype)
     ms = graph_ms(lambda: mlstm_chunkwise(*args), iters=10)
     enq = time_ms(lambda: mlstm_chunkwise(*args), iters=10)
     plain = time_ms(lambda: mlstm_chunkwise_ref(*args), iters=5)
@@ -783,12 +840,14 @@ def _time_mlstm(S):
     pairs = sum(n * (n + 1) // 2 for n in
                 (min(MLSTM_CHUNK, S - t) for t in range(0, S, MLSTM_CHUNK)))
     flops = BH * (4 * S * dh * dh + 4 * pairs * dh + 4 * S * dh)
-    n_bytes = (BH * S * dh * 2 * 4 + BH * S * 4 * 2
+    esz = torch.finfo(dtype).bits // 8
+    n_bytes = (BH * S * dh * esz * 4 + BH * S * 4 * 2
                + BH * (dh * dh + dh + 1) * 4)
-    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
+    b_ms, by = bound_ms(n_bytes, flops, dtype_name)
     return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "shape": f"B=1 H=4 S={S} dh=1024 bf16, fresh state (library: "
+            "shape": f"B=1 H=4 S={S} dh=1024 {_kind(dtype_name)}, fresh "
+                     f"state (library: "
                      f"none, no single PyTorch call computes the chunkwise "
                      f"mLSTM recurrence)"}
 
@@ -798,8 +857,14 @@ def time_paged_step():
     phase's shape: 8 slots mid-generation, bf16; and at recurrentgemma-2b's
     (``"dh256"``), qwen2-moe's (``"moe"``, 16/16 heads), pixtral's
     (``"pixtral"``, 32/8) and llama4's (``"llama4"``, 40/8, window 8192,
-    slots 4096..10240 tokens long) paged shapes."""
+    slots 4096..10240 tokens long) paged shapes; the qwen and
+    recurrentgemma shapes in fp32 (``"fp32"``, ``"fp32_dh256"``: the
+    CUDA-core walk)."""
     out = _time_paged_step(16, 2, 128, 128, None, (64, 1152), seed=3)
+    out["fp32"] = _time_paged_step(16, 2, 128, 128, None, (64, 1152),
+                                   seed=3, dtype_name="float32")
+    out["fp32_dh256"] = _time_paged_step(10, 1, 256, 192, 2048, (64, 3000),
+                                         seed=19, dtype_name="float32")
     out["dh256"] = _time_paged_step(10, 1, 256, 192, 2048, (64, 3000),
                                     seed=19)
     out["moe"] = _time_paged_step(16, 16, 128, 128, None, (64, 1152),
@@ -811,8 +876,9 @@ def time_paged_step():
     return out
 
 
-def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
-    """One (B=8, ps=16, bf16) decode step; eight copies of the pools are
+def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed,
+                     dtype_name="bfloat16"):
+    """One (B=8, ps=16) decode step; eight copies of the pools are
     cycled so each launch finds its K/V outside the 50 MB L2, as a
     many-layer step does.  The bound counts the stored rows the window
     admits, the new token's rows and the small operands."""
@@ -824,7 +890,8 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
     lens = torch.randint(*lens_range, (B,),
                          generator=torch.Generator().manual_seed(seed))
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, torch.bfloat16)
+    x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens,
+                     getattr(torch, dtype_name))
     pools = [(x["k"].clone(), x["v"].clone()) for _ in range(8)]
     it = {"i": 0}
 
@@ -838,7 +905,7 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
     ms = graph_ms(run(paged_decode_step))
     enq = time_ms(run(paged_decode_step))
     plain = time_ms(run(paged_decode_step_ref), iters=10)
-    esz = 2
+    esz = x["q"].element_size()
     stored = (lens - 1).clamp(min=0)
     if window is not None:                   # rows the window admits
         stored = stored.clamp(max=window - 1)
@@ -848,32 +915,57 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed):
                + 4 * B * KVH * dh * esz               # new K/V in, rows out
                + sum(-(-int(n) // ps) for n in lens) * 4 + B * 4)
     flops = 4 * (stored + B) * KVH * g * dh
-    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
+    b_ms, by = bound_ms(n_bytes, flops, dtype_name)
     return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "shape": f"B=8 H={H} KVH={KVH} dh={dh} ps=16 MP={MP} window="
-                     f"{window} bf16 lens={lens.tolist()} (library: none, "
+                     f"{window} {_kind(dtype_name)} lens={lens.tolist()} "
+                     f"(library: none, "
                      f"no single PyTorch call appends into and attends over "
                      f"a paged pool)"}
 
 
 def time_flash():
     """Kernel, plain, library call and bound at the longest prompt the
-    serving phase prefills (S=1024), bf16 (the tensor-core kernel); the
-    same in fp32 (``"fp32"``: the CUDA-core kernel), bf16 at dh 256
-    (``"dh256"``), at qwen2-moe's heads (``"moe"``: 16/16, S=1024) and
-    whisper's encoder (``"whisper_enc"``: 20/20, dh 64, 1500 frames,
-    non-causal)."""
+    serving phase prefills (S=1024), bf16 (the ``mma`` kernel); bf16 at
+    recurrentgemma-2b's dh 256 (``"dh256"``), at qwen2-moe's heads
+    (``"moe"``: 16/16, S=1024) and whisper's encoder (``"whisper_enc"``:
+    20/20, dh 64, 1500 frames, non-causal); fp32 (the 3xTF32 kernel) at
+    every fp32 serving shape of ``FLASH_TIMED``: ``"fp32"`` (qwen),
+    ``"fp32_dh256"``, ``"fp32_stablelm"``, ``"fp32_whisper_enc"``."""
     out = _time_flash(16, 2, 1024, 128, "bfloat16")
-    out["fp32"] = _time_flash(16, 2, 1024, 128, "float32")
-    out["dh256"] = time_flash_dh256()
+    for key, shape in FLASH_TIMED.items():
+        out["fp32" if key == "qwen" else f"fp32_{key}"] = _time_flash(
+            *shape[:4], "float32", causal=shape[4], window=shape[5],
+            iters=FLASH_ITERS.get(key, 50))
+    out["dh256"] = _time_flash(*FLASH_TIMED["dh256"][:4], "bfloat16",
+                               window=2048, iters=FLASH_ITERS["dh256"])
     out["moe"] = _time_flash(16, 16, 1024, 128, "bfloat16")
     out["whisper_enc"] = _time_flash(20, 20, 1500, 64, "bfloat16",
                                      causal=False)
     return out
 
 
-def _time_flash(H, KVH, S, dh, dtype_name, causal=True):
+def cuda_kernel_names(fn):
+    """Names of the CUDA kernels one ``fn()`` launches (``torch.profiler``
+    after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")})
+
+
+def _time_flash(H, KVH, S, dh, dtype_name, causal=True, window=None,
+                iters=50):
+    """``iters`` graph replays, eager calls and SDPA replays.  In fp32
+    the bound is at the 3xTF32 rate of the kernel's products
+    (``bound_ms``), with the CUDA cores' beside it
+    (``bound_cuda_core_ms``), and the name of the kernel SDPA launches."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
@@ -883,60 +975,50 @@ def _time_flash(H, KVH, S, dh, dtype_name, causal=True):
     f = lambda h: torch.randn((B, h, S, dh), generator=gen,
                               device="cuda").to(getattr(torch, dtype_name))
     q, k, v = f(H), f(KVH), f(KVH)
-    ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal))
-    enq = time_ms(lambda: flash_attention(q, k, v, causal=causal))
-    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
-                    iters=10)
+    call = lambda: flash_attention(q, k, v, causal=causal, window=window)
+    ms = graph_ms(call, iters=iters)
+    enq = time_ms(call, iters=iters)
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                window=window), iters=10)
     kr = k.repeat_interleave(H // KVH, dim=1)
     vr = v.repeat_interleave(H // KVH, dim=1)
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, kr, vr, is_causal=causal))
-    pairs = S * (S + 1) // 2 if causal else S * S
+    sdpa = lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                  is_causal=causal)
+    lib = graph_ms(sdpa, iters=iters)
+    pairs = (sum(min(i + 1, window or S) for i in range(S)) if causal
+             else S * S)            # (query, key) pairs the mask admits
     flops = 4 * pairs * dh * H * B
     esz = q.element_size()
     n_bytes = esz * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
     b_ms, by = bound_ms(n_bytes, flops, dtype_name)
-    kind = "bf16" if dtype_name == "bfloat16" else "fp32"
-    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
-            "shape": f"B=1 H={H} KVH={KVH} S={S} dh={dh} "
-                     f"{'causal' if causal else 'non-causal'} {kind} "
-                     f"(library: SDPA, GQA heads expanded outside the "
-                     f"timing)"}
-
-
-def time_flash_dh256():
-    """recurrentgemma-2b's prefill attention: S=2048 (= its window, so
-    causal), H=10, KVH=1, dh=256, bf16."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
-    B, H, KVH, S, dh = 1, 10, 1, 2048, 256
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    f = lambda h: torch.randn((B, h, S, dh), generator=gen,
-                              device="cuda").to(torch.bfloat16)
-    q, k, v = f(H), f(KVH), f(KVH)
-    ms = graph_ms(lambda: flash_attention(q, k, v, window=2048), iters=10)
-    enq = time_ms(lambda: flash_attention(q, k, v, window=2048), iters=10)
-    plain = time_ms(lambda: flash_attention_ref(q, k, v, window=2048),
-                    iters=5)
-    kr, vr = k.expand(B, H, S, dh).contiguous(), v.expand(B, H, S,
-                                                          dh).contiguous()
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
-                                                          is_causal=True))
-    flops = 4 * (S * (S + 1) // 2) * dh * H * B
-    n_bytes = 2 * (2 * B * H * S * dh + 2 * B * KVH * S * dh)
-    b_ms, by = bound_ms(n_bytes, flops, "bfloat16")
-    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
-            "shape": "B=1 H=10 KVH=1 S=2048 dh=256 causal window 2048 bf16 "
-                     "(library: SDPA, KV head expanded outside the timing)"}
+    kind = _kind(dtype_name)
+    mask = ("causal" if causal else "non-causal") + (
+        f" window {window}" if window is not None else "")
+    out = {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
+           "shape": f"B=1 H={H} KVH={KVH} S={S} dh={dh} {mask} {kind} "
+                    f"(library: SDPA, GQA heads expanded outside the "
+                    f"timing)"}
+    if kind == "fp32":
+        out["bound_cuda_core_ms"] = b_ms
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops, "tf32x3")
+        out["library_kernels"] = cuda_kernel_names(sdpa)
+        out["shape"] += (f"; bound at the 3xTF32 rate, at the CUDA cores' "
+                         f"{b_ms:.5f} ms; SDPA launches "
+                         f"{out['library_kernels']}")
+    return out
 
 
 def time_paged_attention():
     """The read-only walk at the decode step's timed shape (8 slots,
-    16/2 heads, dh 128, bf16), eight pool copies cycled past the L2."""
+    16/2 heads, dh 128, bf16), eight pool copies cycled past the L2; the
+    same in fp32 (``"fp32"``: the CUDA-core walk)."""
+    out = _time_paged_attention("bfloat16")
+    out["fp32"] = _time_paged_attention("float32")
+    return out
+
+
+def _time_paged_attention(dtype_name):
     import torch
     from repro_torch.kernels import paged_decode_attention
     from repro_torch.kernels.ref import paged_decode_attention_ref
@@ -945,7 +1027,9 @@ def time_paged_attention():
     lens = torch.randint(64, 1152, (B,),
                          generator=torch.Generator().manual_seed(3))
     gen = torch.Generator(device="cuda").manual_seed(16)
-    x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, torch.bfloat16)
+    x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens,
+                     getattr(torch, dtype_name))
+    esz = x["q"].element_size()
     pools = [(x["k"].clone(), x["v"].clone()) for _ in range(8)]
     it = {"i": 0}
 
@@ -959,12 +1043,13 @@ def time_paged_attention():
     enq = time_ms(run(paged_decode_attention))
     plain = time_ms(run(paged_decode_attention_ref), iters=10)
     n = lens.sum().item()
-    n_bytes = (2 * n * KVH * dh * 2 + 2 * B * H * dh * 2
+    n_bytes = (2 * n * KVH * dh * esz + 2 * B * H * dh * esz
                + sum(-(-int(m) // ps) for m in lens) * 4 + B * 4)
-    b_ms, by = bound_ms(n_bytes, 4 * n * KVH * g * dh, "bfloat16")
+    b_ms, by = bound_ms(n_bytes, 4 * n * KVH * g * dh, dtype_name)
     return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "shape": f"B=8 H=16 KVH=2 dh=128 ps=16 MP=128 bf16 lens="
+            "shape": f"B=8 H=16 KVH=2 dh=128 ps=16 MP=128 "
+                     f"{_kind(dtype_name)} lens="
                      f"{lens.tolist()} (library: none, no single PyTorch "
                      f"call attends over a paged pool)"}
 
@@ -976,7 +1061,8 @@ def time_decode():
     a 2048-token cache mid-generation (the paged step's timed lens), 16/2
     heads, dh 128, no window; and (``"whisper"``) whisper's static engine
     at its phase-12 shape: 4 slots of a 128-token cache, 20/20 heads, dh
-    64."""
+    64; the recurrentgemma-2b ring in fp32 (``"fp32"``: the CUDA-core
+    walk)."""
     import torch
     W = 2048
     out = _time_decode(10, 1, 256, [W + 37 * b for b in range(8)], W, 17)
@@ -985,11 +1071,14 @@ def time_decode():
     out["qwen"] = _time_decode(16, 2, 128, lens.tolist(), None, 23)
     out["whisper"] = _time_decode(20, 20, 64, [100, 110, 120, 127], None,
                                   29, B=4, W=128)
+    out["fp32"] = _time_decode(10, 1, 256, [W + 37 * b for b in range(8)], W,
+                               17, dtype_name="float32")
     return out
 
 
-def _time_decode(H, KVH, dh, fills, window, seed, B=8, W=2048):
-    """B slots (8), a ring of W (2048) slots, bf16; eight K/V copies
+def _time_decode(H, KVH, dh, fills, window, seed, B=8, W=2048,
+                 dtype_name="bfloat16"):
+    """B slots (8), a ring of W (2048) slots; eight K/V copies
     cycled past the 50 MB L2.  The library yardstick is SDPA over the
     validity mask with the KV heads expanded outside the timing."""
     import torch
@@ -998,7 +1087,8 @@ def _time_decode(H, KVH, dh, fills, window, seed, B=8, W=2048):
     from repro_torch.kernels.ref import decode_attention_ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, spos, pos = _ring_inputs(gen, B, H, KVH, W, dh, fills,
-                                      torch.bfloat16)
+                                      getattr(torch, dtype_name))
+    esz = q.element_size()
     rings = [(k.clone(), v.clone()) for _ in range(8)]
     it = {"i": 0}
 
@@ -1022,15 +1112,15 @@ def _time_decode(H, KVH, dh, fills, window, seed, B=8, W=2048):
     lib = graph_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kx, vx, attn_mask=mask))
     n_valid = int(mask.sum().item())
-    n_bytes = (2 * n_valid * KVH * dh * 2 + 2 * B * H * dh * 2
+    n_bytes = (2 * n_valid * KVH * dh * esz + 2 * B * H * dh * esz
                + B * W * 4 + B * 4)
-    b_ms, by = bound_ms(n_bytes, 4 * n_valid * H * dh, "bfloat16")
+    b_ms, by = bound_ms(n_bytes, 4 * n_valid * H * dh, dtype_name)
     return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
             "shape": f"B={B} H={H} KVH={KVH} W={W} window {window} dh={dh} "
-                     f"bf16, fills {fills} (library: SDPA with the boolean "
-                     f"validity mask, KV heads expanded outside the "
-                     f"timing)"}
+                     f"{_kind(dtype_name)}, fills {fills} (library: SDPA "
+                     f"with the boolean validity mask, KV heads expanded "
+                     f"outside the timing)"}
 
 
 def scan_copies(B, S, d, dtype_name, seed):
@@ -3906,6 +3996,8 @@ def main() -> int:
     for dt in ("float32", "bfloat16"):
         check_paged_step(errs, dt)
         check_flash(errs, dt)
+        if dt == "float32":
+            check_flash_fp64()
         check_paged_attention(errs, dt)
         check_decode(errs, dt)
         check_scan(errs, dt)

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's CUDA kernels: fp32/bf16 storage
 // conversion, 16-byte vector unpacking, warp reductions, and the
-// cp.async / ldmatrix / mma.sync.m16n8k16 wrappers of the tensor-core
-// kernels.  Each kernel
+// cp.async / ldmatrix / mma.sync (m16n8k16 bf16, m16n8k8 tf32 with the
+// 3xTF32 split) wrappers of the tensor-core kernels.  Each kernel
 // source is compiled into its own library, so these live in an anonymous
 // namespace.
 #pragma once
@@ -51,7 +51,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- mma.sync building blocks (bf16 in, fp32 accumulators)
+// ---- mma.sync building blocks (bf16 or tf32 in, fp32 accumulators)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -98,6 +98,33 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b for one 16×8 tile: a 16×8 tf32 (row), b 8×8 tf32 (col), fp32
+// accumulators.  Thread (g = lane/4, t = lane%4) holds a (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4), b (k t, n g), (k t+4, n g) and d (g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1).  Not volatile: it has no side
+// effect, so the compiler may interleave independent accumulators.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The error-compensated split of 3xTF32, x ≈ big + small for finite x:
+// big is x rounded to tf32 (11 significant bits) to nearest, ties away
+// from zero, as cvt.rna.tf32.f32 gives it (its magnitude's bits plus half
+// an ulp, truncated: two integer operations, where the cvt also checks
+// for NaN and infinity); small = x − big is exact
+// (Sterbenz), and an mma reads it as tf32 by dropping its low 13 bits,
+// so |x − big − small as read| < 2⁻²¹ |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // two floats as a bf16 pair, the first in the low half

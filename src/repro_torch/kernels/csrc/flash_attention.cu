@@ -14,310 +14,79 @@
 // tensor cores come near the bound.
 //
 // Two kernels, chosen by the storage type (a fixed dispatch, not a
-// fallback: a bf16 call that cannot launch returns its error):
+// fallback: a call that cannot launch returns its error).  Both have the
+// FlashAttention-2 structure: one CTA per (query tile, b, h), warps of 16
+// query rows each; the Q tile and a 2-stage ring of K and V tiles in
+// shared memory, loaded by 16-byte cp.async (tile k+1 in flight while
+// tile k is used); the online softmax in fp32 registers with
+// scale·log2(e) folded into exp2f (the scores are never rounded; q is not
+// pre-scaled).  Head dims are compile-time buckets 64, 128 and 256; any
+// other dh (a multiple of 8) is zero-padded in shared memory to the next
+// bucket and the padded output columns are not written.
 //
-// bf16: `flash_mma_kernel`, the FlashAttention-2 structure on
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulators).  One CTA of 4 warps per
-// (64-row query tile, b, h); each warp owns 16 query rows.  The Q tile and a
-// 2-stage ring of K and V tiles (64 keys; 32 at dh 256) sit in shared memory
-// as bf16, loaded by 16-byte cp.async (tile k+1 in flight while tile k is
-// used), rows XOR-swizzled in 16-byte chunks so that ldmatrix reads are free
-// of bank conflicts.  S = Q·Kᵀ takes A (Q, re-read by ldmatrix every k-step
-// rather than held in registers) and B (K) by ldmatrix; the online softmax
-// runs in fp32 registers with scale·log2(e) folded into exp2f (the scores
-// are never rounded; q is not pre-scaled); P is rounded to bf16 in registers
-// and is directly the A operand of O += P·V, V coming in by ldmatrix.trans.
-// Head dims are compile-time buckets 64, 128 and 256; any other dh (a
-// multiple of 8) is zero-padded in shared memory to the next bucket and the
-// padded output columns are not written.  Shared memory, Q + 2 × (K + V): 80
-// KB at 128 (two CTAs per SM), 96 KB at 256 (two: 32-key tiles halve the
-// ring and the score registers; 64-key tiles there take 160 KB, one 4-warp
-// CTA per SM, and spill registers).
+// bf16: `flash_mma_kernel` on mma.sync.m16n8k16 (bf16 in, fp32
+// accumulators), 4 warps a 64-row query tile.  Rows XOR-swizzled in
+// 16-byte chunks, so that ldmatrix reads are free of bank conflicts.
+// S = Q·Kᵀ takes A (Q, re-read by ldmatrix every k-step rather than held
+// in registers) and B (K) by ldmatrix; P is rounded to bf16 in registers
+// and is directly the A operand of O += P·V, V coming in by
+// ldmatrix.trans.  Shared memory, Q + 2 × (K + V): 80 KB at 128 (two CTAs
+// per SM), 96 KB at 256 (two: 32-key tiles halve the ring and the score
+// registers; 64-key tiles there take 160 KB, one 4-warp CTA per SM, and
+// spill registers).
 //
-// fp32: `flash_attention_kernel`, on the CUDA cores, because a
-// tensor-core product in fp32 means TF32 (~3 decimal digits), which
-// cannot meet the fp32 tolerance.  One CTA of 256 threads per (64-row
-// query tile, b, h).  The query tile and one 64-row K and V tile at a
-// time sit in shared memory as fp32, loaded with 16-byte vectors; each
-// thread owns a 4×4 block of the score tile and a 4×(dh/16) block of the
-// output in registers, reads shared memory as float4 where the layout
-// allows, and keeps the online softmax in fp32.  The probabilities reuse
-// the K tile's shared memory, so two CTAs fit on an SM up to dh 128; at
-// dh 256 the three fp32 tiles take 4·(64·260 + 64·260 + 64·256) =
-// 198,656 bytes and one CTA fits.
+// fp32: `flash_tf32x3_kernel` on mma.sync.m16n8k8 with tf32 operands and
+// fp32 accumulators.  One TF32 product keeps 11 significant bits (about
+// 3 decimal digits) and misses the fp32 tolerance (2e-5) many times, so
+// every product is error-compensated ("3xTF32", as CUTLASS's
+// OpMultiplyAddFastF32): each fp32 operand x is split as it is loaded
+// into big = x rounded to tf32 and small = x − big (split_tf32), and a·b
+// is taken as small·big + big·small + big·big; the dropped small·small
+// term is near 2⁻²² of the product, so the result keeps fp32 accuracy at
+// a third of the 495 TFLOP/s TF32 rate (~165 TFLOP/s, 2.5× the 67 of the
+// CUDA cores).  What bounds it instead is issue: the split takes three
+// ALU operations an operand element, and each warp splits every K and V
+// fragment it reads (the four warps of a CTA read the same ones).  Where
+// its fp32 result is made:
+// - the mma adds into its accumulator rounding toward zero, so a long
+//   sum in one accumulator drifts: the score's big·big, small·big and
+//   big·small go to three accumulators, summed once a tile (this also
+//   keeps three mma chains in flight a score tile), and each tile's P·V
+//   starts from zero and joins O by one fma, O·corr + P·V;
+// - P is split like any other operand.
+// Operands come from shared memory by 32- and 64-bit loads (ldmatrix moves
+// 16-bit elements and cannot transpose fp32): the k index of each 8-deep
+// step is permuted so that a thread's two k columns are adjacent, 2t and
+// 2t+1 rather than t and t+4.  Q's and K's fragments are then one 64-bit
+// load a row, and the score accumulator of an 8-key tile, (g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1), is already the A fragment of that
+// tile's P·V step, with no shuffle; V's B fragment is two 32-bit loads,
+// rows 2t and 2t+1.  Rows are padded, not swizzled, against bank conflicts
+// (ld_qk, ld_v), which leaves every fragment offset a per-thread base plus
+// a constant.  fp32 tiles are twice bf16's, so the key tiles are shorter:
+// 32 keys and 4 warps (64 query rows) at dh 64 and 128, Q + 2 × (K + V)
+// 53 and 101 KB (two CTAs per SM); at dh 256 16 keys and 8 warps (128
+// query rows), 197.5 KB, one CTA of 8 warps per SM (4 warps there leave the
+// SM's 4 schedulers one warp each and wait on latency).
 //
 // Both: the KV range of each query tile is bounded to the blocks its
 // causal/window mask can reach (first_blk..last_blk, as the TPU kernel
-// bounds its grid); masked scores are skipped rather than multiplied by
-// zero; query tiles are issued longest-first so the causal triangle's
-// heavy tiles start early (in the bf16 kernel across every (b, h): the
-// query tile is the slow grid dimension, so no head's longest tile waits
-// for another head's short ones).  The bf16 kernel applies the mask only
-// on the tiles that cross the diagonal, the window edge or the ragged
-// tail.
+// bounds its grid); the mask is applied only on the tiles that cross the
+// diagonal, the window edge or the ragged tail, where masked scores
+// become the sentinel and then exactly 0; query tiles are issued
+// longest-first across every (b, h) (the query tile is the slow grid
+// dimension, so no head's longest tile waits for another head's short
+// ones); a row that no key reaches gets l floored at 1e-30.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kBQ = 64;
-constexpr int kBK = 64;
 constexpr int kMaxDh = 256;
-constexpr int kPd = kBK + 4;        // probability row stride (float4-aligned)
 constexpr float kNegInf = -1e30f;
-
-// reduce over the 16 lanes that share one thread row (tx = lane & 15)
-__device__ __forceinline__ float row_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage rows [row0, row0+64) of a (S, dh) matrix into shared memory as
-// fp32 with row stride ld, scaling by `scale`; rows past S become zeros.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int row0, int S, int dh, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vpr = dh / kVec;
-  for (int i = threadIdx.x; i < 64 * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i % vpr) * kVec;
-    float f[kVec];
-    if (row0 + r < S) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * dh + c);
-      unpack(u, f, T());
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; e += 4)
-      *reinterpret_cast<float4*>(dst + r * ld + c + e) =
-          make_float4(f[e] * scale, f[e + 1] * scale, f[e + 2] * scale,
-                      f[e + 3] * scale);
-  }
-}
-
-// floats of the region holding the K tile and, after the scores, the
-// probabilities
-__host__ __device__ __forceinline__ int kp_size(int ld) {
-  return kBK * ld > kBQ * kPd ? kBK * ld : kBQ * kPd;
-}
-
-// output column of a thread's chunk c (tx = column lane of the thread)
-template <bool VEC4>
-__device__ __forceinline__ int col(int c, int tx) {
-  return VEC4 ? 64 * (c >> 2) + tx * 4 + (c & 3) : tx + 16 * c;
-}
-
-// NC = output column chunks of 16 per thread row (dh <= 16*NC).  VEC4:
-// dh == 16*NC with NC a multiple of 4, so a thread owns runs of 4
-// adjacent columns (tx*4 + 64*h ..) and reads V as float4.  Up to NC = 8
-// two CTAs share an SM (at most 128 registers a thread); at NC = 16 the
-// shared memory admits one, so a thread may take 255 registers for its 64
-// accumulators rather than spill them.
-template <typename T, int NC, bool VEC4>
-__global__ void __launch_bounds__(kThreads, NC > 8 ? 1 : 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int KVH, int S, int dh, int causal, int window,
-                       float scale) {
-  const int nq = gridDim.x;
-  const int qb = nq - 1 - blockIdx.x;          // longest tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KVH);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;      // 16 x 16 thread grid
-  const int ld = dh + 4;                       // padded, float4-aligned rows
-
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // kBQ * ld
-  float* k_s = q_s + kBQ * ld;                 // K tile, then P (kBQ*kPd)
-  float* v_s = k_s + kp_size(ld);              // kBK * dh
-  float* p_s = k_s;
-
-  const T* qg = q + ((long long)b * H + h) * S * dh;
-  const T* kg = k + ((long long)b * KVH + kvh) * S * dh;
-  const T* vg = v + ((long long)b * KVH + kvh) * S * dh;
-  const int q0 = qb * kBQ;
-  stage(q_s, ld, qg, q0, S, dh, scale);
-
-  // KV blocks this query tile's mask can reach
-  const int q_last = (q0 + kBQ - 1 < S - 1) ? q0 + kBQ - 1 : S - 1;
-  const int n_kb = (S + kBK - 1) / kBK;
-  const int last_blk = causal ? q_last / kBK : n_kb - 1;
-  int first_blk = 0;
-  if (window > 0 && q0 - window + 1 > 0) first_blk = (q0 - window + 1) / kBK;
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kb = first_blk; kb <= last_blk; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();                           // previous tile fully used
-    stage(k_s, ld, kg, k0, S, dh, 1.f);
-    stage(v_s, dh, vg, k0, S, dh, 1.f);
-    __syncthreads();
-
-    // scores for rows ty+16i, cols tx+16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dh; d += 4) {
-      float4 a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bb[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, bb[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, bb[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, bb[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, bb[j].w, s[i][j]);
-        }
-    }
-    __syncthreads();                           // K tile read: P reuses it
-
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool o = kpos < S;
-        if (causal) o = o && kpos <= qpos;
-        if (window > 0) o = o && qpos - kpos < window;
-        ok[j] = o;
-        if (o) mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_s[(ty + 16 * i) * kPd + tx + 16 * j] = p;
-        sum += p;
-      }
-      corr[i] = expf(m[i] - m_new);
-      l[i] = l[i] * corr[i] + row_sum(sum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr[i];
-    for (int j = 0; j < kBK; j += 4) {
-      float4 p4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPd + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vr = v_s + (j + jj) * dh;
-        float vv[NC];
-        if (VEC4) {
-#pragma unroll
-          for (int c = 0; c < NC; c += 4) {
-            const float4 w = *reinterpret_cast<const float4*>(vr + col<VEC4>(c, tx));
-            vv[c] = w.x;
-            vv[c + 1] = w.y;
-            vv[c + 2] = w.z;
-            vv[c + 3] = w.w;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) vv[c] = col<VEC4>(c, tx) < dh ? vr[col<VEC4>(c, tx)] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = jj == 0 ? p4[i].x : jj == 1 ? p4[i].y
-                        : jj == 2 ? p4[i].z : p4[i].w;
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + ((long long)b * H + h) * S * dh + (long long)row * dh;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (col<VEC4>(c, tx) < dh)
-        o[col<VEC4>(c, tx)] = from_f<T>(acc[i][c] * inv);
-  }
-}
-
-template <typename T, int NC, bool VEC4>
-int launch_nc(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int KVH, int S, int dh, int causal, int window,
-              float scale, cudaStream_t stream) {
-  const int ld = dh + 4;
-  const size_t smem = sizeof(float) * (kBQ * ld + kp_size(ld) + kBK * dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NC, VEC4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, NC, VEC4><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KVH, S, dh, causal,
-      window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KVH, int S, int dh, int causal, int window, float scale,
-           cudaStream_t stream) {
-  if (dh % 8 || dh > kMaxDh) return (int)cudaErrorInvalidValue;
-  if (dh == 256)
-    return launch_nc<T, 16, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  if (dh == 128)
-    return launch_nc<T, 8, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  if (dh == 64)
-    return launch_nc<T, 4, true>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  if (dh <= 16)
-    return launch_nc<T, 1, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  if (dh <= 32)
-    return launch_nc<T, 2, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  if (dh <= 64)
-    return launch_nc<T, 4, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  if (dh <= 128)
-    return launch_nc<T, 8, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-  return launch_nc<T, 16, false>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
-}
-
-// ------------------------------------------------------------ bf16, mma
 constexpr int kMmaThreads = 128;    // 4 warps, 16 query rows each
 
+// ------------------------------------------------------------ bf16, mma
 // Rows [row0, row0 + ROWS) of a (S, dh) bf16 matrix into a swizzled tile
 // of ROWS rows of DH, by cp.async; rows past S and columns past dh are
 // zeros.
@@ -547,11 +316,289 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return launch_mma<256, 32, 2>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
 }
 
+// ------------------------------------------------------------ fp32, 3xTF32
+
+// Row strides (floats) of the fp32 tiles, padded against bank conflicts:
+// Q and K rows of DH + 8, so the 64-bit loads of a half-warp (rows g ..
+// g + 3 at 8 adjacent columns) start 8 banks apart; V rows of DH + 4, so
+// the 32-bit loads of a warp (rows 2t or 2t + 1 at 8 adjacent columns)
+// do.  Unlike a swizzle, padding leaves every fragment offset a
+// per-thread base plus a compile-time constant.
+template <int DH> __host__ __device__ constexpr int ld_qk() { return DH + 8; }
+template <int DH> __host__ __device__ constexpr int ld_v() { return DH + 4; }
+
+// Rows [row0, row0 + ROWS) of a (S, dh) fp32 matrix into a tile of ROWS
+// rows of stride LD, by cp.async from THREADS threads; rows past S and
+// columns past dh are zeros (dh <= DH).
+template <int DH, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              int row0, int S, int dh) {
+  constexpr int kChunks = DH / 4;
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < S && c * 4 < dh;
+    const float* g = ok ? src + (long long)(row0 + r) * dh + c * 4 : src;
+    cp_async16(smem_addr(dst + r * LD + c * 4), g, ok ? 16 : 0);
+  }
+}
+
+// DH: the head-dim bucket (64, 128 or 256), dh <= DH the real one; BK:
+// keys per K/V tile; WARPS: warps of 16 query rows (the query tile is
+// 16·WARPS rows); MINB: CTAs per SM the registers must allow.  Thread
+// (warp w, lane; g = lane/4, t = lane%4) holds, of each 16×8 accumulator
+// tile, rows r_lo = 16w + g and r_lo + 8, columns 2t and 2t + 1.  In every
+// 8-deep k-step the thread's k columns are 2t (the mma's k = t) and 2t + 1
+// (its k = t + 4), in A and in B alike.
+template <int DH, int BK, int WARPS, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int H, int KVH, int S, int dh, int causal, int window,
+                    float scale_log2) {
+  constexpr int kRows = 16 * WARPS, kThreads = 32 * WARPS;
+  constexpr int kLQ = ld_qk<DH>(), kLV = ld_v<DH>();
+  constexpr int kStage = BK * (kLQ + kLV);   // floats of a K and a V tile
+  constexpr int kNT = BK / 8;      // 8-key tiles: score tiles, P·V k-steps
+  constexpr int kDT = DH / 8;      // Q·Kᵀ k-steps, 8-column output tiles
+  // grid (B·H, nq): the CTAs of one query tile index start together for
+  // every (b, h), longest tiles first
+  const int nq = gridDim.y;
+  const int qb = nq - 1 - blockIdx.y;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // Q tile, then the ring: stage st holds K, then V
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* ring = q_s + kRows * kLQ;
+
+  const float* qg = q + ((long long)b * H + h) * S * dh;
+  const float* kg = k + ((long long)b * KVH + kvh) * S * dh;
+  const float* vg = v + ((long long)b * KVH + kvh) * S * dh;
+  const int q0 = qb * kRows;
+  const int q_last = (q0 + kRows - 1 < S - 1) ? q0 + kRows - 1 : S - 1;
+  const int n_kb = (S + BK - 1) / BK;
+  const int last_blk = causal ? q_last / BK : n_kb - 1;
+  int first_blk = 0;
+  if (window > 0 && q0 - window + 1 > 0) first_blk = (q0 - window + 1) / BK;
+
+  load_tile_f32<DH, kRows, kLQ, kThreads>(q_s, qg, q0, S, dh);
+  load_tile_f32<DH, BK, kLQ, kThreads>(ring, kg, first_blk * BK, S, dh);
+  load_tile_f32<DH, BK, kLV, kThreads>(ring + BK * kLQ, vg, first_blk * BK,
+                                       S, dh);
+  cp_async_commit();
+
+  float o[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int r_lo = q0 + warp * 16 + g;
+  const int c_lo = 2 * t;
+  // this thread's fragments: Q rows 16w + g (and + 8), K rows g, V rows
+  // 2t (and + 1), at columns 2t (Q, K) or g (V) of each 8-column step
+  const float* qa = q_s + (warp * 16 + g) * kLQ + c_lo;
+  const int k_off = g * kLQ + c_lo;
+  const int v_off = BK * kLQ + c_lo * kLV + g;
+
+  for (int kb = first_blk; kb <= last_blk; ++kb) {
+    const int st = (kb - first_blk) & 1;
+    if (kb < last_blk) {                       // next tile in flight
+      float* nxt = ring + (st ^ 1) * kStage;
+      load_tile_f32<DH, BK, kLQ, kThreads>(nxt, kg, (kb + 1) * BK, S, dh);
+      load_tile_f32<DH, BK, kLV, kThreads>(nxt + BK * kLQ, vg,
+                                           (kb + 1) * BK, S, dh);
+    }
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const float* kf = ring + st * kStage + k_off;
+    const float* vf = ring + st * kStage + v_off;
+
+    // S = Q·Kᵀ for this warp's 16 rows × BK keys, 3xTF32: big·big into
+    // sc, the two small terms into sc_sb and sc_bs, summed at the end
+    // (the mma adds into its accumulator rounding toward zero, so fewer
+    // additions into the large sum keep its bias small; three independent
+    // accumulators also keep three mma chains in flight a score tile)
+    float sc[kNT][4], sc_sb[kNT][4], sc_bs[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = sc_sb[n][e] = sc_bs[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDT; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qa + kk * 8);
+      const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * kLQ
+                                                         + kk * 8);
+      uint32_t a_big[4], a_small[4];
+      split_tf32(x0.x, a_big[0], a_small[0]);
+      split_tf32(x1.x, a_big[1], a_small[1]);
+      split_tf32(x0.y, a_big[2], a_small[2]);
+      split_tf32(x1.y, a_big[3], a_small[3]);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const float2 y = *reinterpret_cast<const float2*>(
+            kf + n * 8 * kLQ + kk * 8);
+        uint32_t b_big0, b_small0, b_big1, b_small1;
+        split_tf32(y.x, b_big0, b_small0);
+        split_tf32(y.y, b_big1, b_small1);
+        mma1688_tf32(sc_sb[n], a_small, b_big0, b_big1);
+        mma1688_tf32(sc_bs[n], a_big, b_small0, b_small1);
+        mma1688_tf32(sc[n], a_big, b_big0, b_big1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] += sc_sb[n][e] + sc_bs[n][e];
+
+    // mask only the tiles that cross the diagonal, the window edge or the
+    // ragged tail; masked scores become the sentinel and then exactly 0
+    const int k0 = kb * BK;
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0)
+                      || (window > 0 && q_last - k0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = r_lo + (e >> 1) * 8;
+          const int kp = k0 + n * 8 + c_lo + (e & 1);
+          bool ok = kp < S;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && qp - kp < window;
+          if (!ok) sc[n][e] = kNegInf;
+        }
+    }
+
+    // online softmax in fp32: rows r_lo (i = 0) and r_lo + 8 (i = 1),
+    // reduced over the quad of lanes that share them
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+    float corr[2], mc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f((m[i] - mx[i]) * scale_log2);
+      m[i] = mx[i];
+      mc[i] = mx[i] * scale_log2;
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sc[n][e], scale_log2, -mc[e >> 1]));
+        if (edge && sc[n][e] == kNegInf) p = 0.f;
+        sc[n][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+
+    // O = O·corr + P·V, 3xTF32: the score tile n is the A fragment of
+    // k-step n (its accumulator (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+    // is A's (g, k t), (g, k t+4), (g+8, k t), (g+8, k t+4) in the permuted
+    // k).  Each 8-column tile's P·V starts from zero and joins O in one
+    // rounded fma: summed in O's own accumulator over thousands of keys,
+    // the mma's additions toward zero would bias O several times more than
+    // the fp32 plain version errs.
+    uint32_t p_big[kNT][4], p_small[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      split_tf32(sc[n][0], p_big[n][0], p_small[n][0]);
+      split_tf32(sc[n][2], p_big[n][1], p_small[n][1]);
+      split_tf32(sc[n][1], p_big[n][2], p_small[n][2]);
+      split_tf32(sc[n][3], p_big[n][3], p_small[n][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        uint32_t b_big0, b_small0, b_big1, b_small1;
+        split_tf32(vf[n * 8 * kLV + j * 8], b_big0, b_small0);
+        split_tf32(vf[(n * 8 + 1) * kLV + j * 8], b_big1, b_small1);
+        mma1688_tf32(pv, p_small[n], b_big0, b_big1);
+        mma1688_tf32(pv, p_big[n], b_small0, b_small1);
+        mma1688_tf32(pv, p_big[n], b_big0, b_big1);
+      }
+      o[j][0] = fmaf(o[j][0], corr[0], pv[0]);
+      o[j][1] = fmaf(o[j][1], corr[0], pv[1]);
+      o[j][2] = fmaf(o[j][2], corr[1], pv[2]);
+      o[j][3] = fmaf(o[j][3], corr[1], pv[3]);
+    }
+    __syncthreads();                 // stage st is refilled next iteration
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
+  const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  float* og = out + ((long long)b * H + h) * S * dh;
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+    const int c = j * 8 + c_lo;
+    if (c >= dh) continue;                     // padded columns
+    if (r_lo < S)
+      *reinterpret_cast<float2*>(og + (long long)r_lo * dh + c) =
+          make_float2(o[j][0] * inv0, o[j][1] * inv0);
+    if (r_lo + 8 < S)
+      *reinterpret_cast<float2*>(og + (long long)(r_lo + 8) * dh + c) =
+          make_float2(o[j][2] * inv1, o[j][3] * inv1);
+  }
+}
+
+template <int DH, int BK, int WARPS, int MINB>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
+                  int B, int H, int KVH, int S, int dh, int causal,
+                  int window, float scale, cudaStream_t stream) {
+  constexpr int kRows = 16 * WARPS;
+  // Q + 2 × (K + V)
+  const int smem = (kRows * ld_qk<DH>() + 2 * BK * (ld_qk<DH>() + ld_v<DH>()))
+                   * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tf32x3_kernel<DH, BK, WARPS, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (S + kRows - 1) / kRows);
+  flash_tf32x3_kernel<DH, BK, WARPS, MINB><<<grid, 32 * WARPS, smem,
+                                             stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, KVH, S, dh,
+      causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// fp32: the head-dim bucket at or above dh
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int H, int KVH, int S, int dh, int causal, int window,
+               float scale, cudaStream_t stream) {
+  if (dh % 8 || dh > kMaxDh) return (int)cudaErrorInvalidValue;
+  if (dh <= 64)
+    return launch_tf32x3<64, 32, 4, 2>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  if (dh <= 128)
+    return launch_tf32x3<128, 32, 4, 2>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+  return launch_tf32x3<256, 16, 8, 1>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
-// kernel).  causal: 0/1.  window <= 0 = none.  Returns the cudaError_t of
-// the launch (0 = launched).
+// dtype: 0 = float32 (3xTF32 tensor-core kernel), 1 = bfloat16
+// (tensor-core kernel).  causal: 0/1.  window <= 0 = none.  Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
                                       int KVH, int S, int dh, int causal,
@@ -560,7 +607,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 0) return 0;
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, H, KVH, S, dh, causal, window, scale, s);
+    return launch_f32(q, k, v, out, B, H, KVH, S, dh, causal, window, scale,
+                      s);
   if (dtype == 1)
     return launch_bf16(q, k, v, out, B, H, KVH, S, dh, causal, window, scale,
                        s);

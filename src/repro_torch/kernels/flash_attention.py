@@ -8,9 +8,11 @@ the ragged tail); dh is a multiple of 8 up to 256.
 
 A CPU tensor runs the plain version (``ref.flash_attention_ref``); a CUDA
 tensor launches the kernel or raises.  On CUDA the storage type picks the
-kernel: bf16 runs on the tensor cores (``mma.sync``), fp32 on the CUDA
-cores (a tensor-core product in fp32 would be TF32, short of the fp32
-tolerance).  No call falls back from one to the other.
+kernel; both run on the tensor cores (``mma.sync``): bf16 with bf16
+operands, fp32 as 3xTF32 (each operand split into a TF32 big and small
+part, each product taken as small·big + big·small + big·big, which keeps
+fp32 accuracy where one TF32 product would not).  No call falls back from
+one to the other.
 """
 from __future__ import annotations
 

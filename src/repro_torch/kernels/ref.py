@@ -26,12 +26,13 @@ def upcast(x):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
-    """q: (B,H,S,dh), k/v: (B,KVH,S,dh) -> (B,H,S,dh)."""
+    """q: (B,H,S,dh), k/v: (B,KVH,S,dh) -> (B,H,S,dh); fp64 inputs are
+    computed in fp64 (the fp32 kernel's accuracy is held to that)."""
     B, H, S, dh = q.shape
     KVH = k.shape[1]
     g = H // KVH
-    qg = q.reshape(B, KVH, g, S, dh).float() / math.sqrt(dh)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())
+    qg = upcast(q.reshape(B, KVH, g, S, dh)) / math.sqrt(dh)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, upcast(k))
     pos = torch.arange(S, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -41,7 +42,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
         mask &= qpos - kpos < window
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
+    o = torch.einsum("bkgqs,bksd->bkgqd", w, upcast(v))
     return o.reshape(B, H, S, dh).to(q.dtype)
 
 

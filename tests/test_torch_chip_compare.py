@@ -1,8 +1,13 @@
 """``chip_compare.py merge-share`` times the decode kernels with their
-merge skipped by text patches of the CUDA sources: the patches must find
-the merge in the repository's sources, and a source where they find
-nothing must stop the measurement instead of timing the kernel as it is.
+merge skipped, and ``split-share`` the fp32 flash kernel with its K/V
+3xTF32 splits skipped, by text patches of the CUDA sources: the patches
+must find their text in the repository's sources, and a source where they
+find nothing must stop the measurement instead of timing the kernel as it
+is.  Both time the two builds in turns and restore the sources; the other
+comparisons run each checkout in fresh processes, in turns.
 """
+import re
+import shutil
 import sys
 from pathlib import Path
 
@@ -38,3 +43,93 @@ def test_skip_merge_raises_when_the_merge_is_not_found(tmp_path):
         (src / p.name).write_text(text)
     with pytest.raises(RuntimeError, match="merge was not found"):
         chip_compare.skip_merge_sources(src, tmp_path / "dest")
+
+
+def test_skip_split_patches_the_flash_source(tmp_path):
+    dest = tmp_path / "csrc"
+    chip_compare.skip_split_sources(CSRC, dest)
+    before = (CSRC / "flash_attention.cu").read_text()
+    text = (dest / "flash_attention.cu").read_text()
+    assert "b_small" in before and "__float_as_uint" in text
+    assert not re.search(r"split_tf32\([^;]*b_big", text)
+    for kept in ("a_big", "p_big"):     # Q's and P's splits stay
+        assert (len(re.findall(rf"split_tf32\([^;]*{kept}", text))
+                == len(re.findall(rf"split_tf32\([^;]*{kept}", before)) > 0)
+    for p in CSRC.iterdir():
+        if p.name != "flash_attention.cu":
+            assert (dest / p.name).read_text() == p.read_text()
+
+
+def test_skip_split_raises_when_a_split_is_not_found(tmp_path):
+    src = tmp_path / "src"
+    shutil.copytree(CSRC, src)
+    path = src / "flash_attention.cu"
+    path.write_text(path.read_text().replace("b_big", "b_hi"))
+    with pytest.raises(RuntimeError, match="no K or V split"):
+        chip_compare.skip_split_sources(src, tmp_path / "dest")
+
+
+def test_patched_times_alternates_builds_and_restores_the_sources(
+        tmp_path, monkeypatch):
+    import chip_smoke
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, iters: fn())
+    csrc = _build.CSRC
+    seen = []
+
+    def patch(src, dest):
+        assert src == csrc
+        shutil.copytree(src, dest)
+
+    def case():
+        seen.append(_build.CSRC)
+        return 2.0 if _build.CSRC == tmp_path / "p" else 1.0
+    times = chip_compare.patched_times({"k": case}, patch, "p", 3)
+    assert times == {"k": (1.0, 2.0, [1.0, 1.0], [2.0, 2.0])}
+    assert seen == [csrc, tmp_path / "p", tmp_path / "p", csrc]
+    assert _build.CSRC == csrc
+
+
+SCRIPT = r"""
+import json, os, sys
+json.dump({"cwd": os.getcwd(), "argv": sys.argv[2:]}, open(sys.argv[1], "w"))
+print("hello")
+"""
+
+
+def test_fresh_runs_from_the_tree_and_returns_its_result(tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setattr(chip_compare, "LOGDIR", tmp_path / "logs")
+    tree = tmp_path / "tree"
+    tree.mkdir()
+    out, res = chip_compare.fresh(SCRIPT, tree, "run", 3, "x")
+    assert out == "hello\n"
+    assert res == {"cwd": str(tree.resolve()), "argv": ["3", "x"]}
+    assert (tmp_path / "logs" / "run.log").read_text() == "hello\n"
+    out, res = chip_compare.fresh("print('no result')", tree, "run")
+    assert res is None      # the earlier run's result is not read back
+    with pytest.raises(RuntimeError, match="bad failed"):
+        chip_compare.fresh("raise SystemExit(3)", tree, "bad")
+
+
+@pytest.mark.parametrize("other", [None, "parent"])
+def test_in_turns_puts_this_checkout_between_the_other(tmp_path, other,
+                                                       capsys):
+    other = other and tmp_path / other
+    calls = []
+    runs = chip_compare.in_turns(other, lambda tree, label: calls.append(
+        (tree, label)) or float(len(calls)))
+    this = chip_compare.ROOT
+    if other is None:
+        assert calls == [(this, "this_1"), (this, "this_2")]
+        assert runs == {"this": [1.0, 2.0]}
+    else:
+        assert calls == [(other, "other_1"), (this, "this_1"),
+                         (this, "this_2"), (other, "other_2")]
+        assert runs == {"other": [1.0, 4.0], "this": [2.0, 3.0]}
+    chip_compare.print_means("[x] k", runs, lambda r: r)
+    line = capsys.readouterr().out
+    want = ("this [2.0, 3.0] mean 2.50000 ms;" if other
+            else "this [1.0, 2.0] mean 1.50000 ms;")
+    assert line.startswith("[x] k:") and want in line

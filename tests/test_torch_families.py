@@ -114,6 +114,30 @@ def test_forward_matches_jax(arch, cf):
         assert float(got["aux"]) > 0
 
 
+def test_whisper_bf16_frames_match_jax():
+    """Reduced whisper in bf16 (JAX's bf16 init bridged as it is) on bf16
+    frames: the port's last logits lie within a 2e-2 relative norm of
+    JAX's (the bf16 MoE layers' bound: the two frameworks round bf16 at
+    other places).  With bf16 frames both run the encoder in bf16; fp32
+    frames make JAX's bf16 forward raise (``repro/models/model.py``:314,
+    a bf16 scan carry meets an fp32 one)."""
+    c = _ctx(ENCDEC, jnp.bfloat16)
+    rng = np.random.default_rng(14)
+    toks = rng.integers(0, c["cfg"].vocab_size, (2, 24))
+    frames = rng.standard_normal((2, c["cfg"].enc_seq, c["cfg"].d_model))
+    want = jm.forward(c["cfg"], c["jp"], {
+        "tokens": jnp.asarray(toks, jnp.int32),
+        "frames": jnp.asarray(frames, jnp.bfloat16)})["logits"][:, -1]
+    got = pm.forward(c["pcfg"], c["tp"], {
+        "tokens": torch.from_numpy(toks),
+        "frames": torch.tensor(frames, dtype=torch.float32).to(
+            torch.bfloat16)})["logits"][:, -1]
+    assert got.dtype == torch.bfloat16
+    w = _np(want).astype(np.float64)
+    rel = np.linalg.norm(_np(got) - w) / np.linalg.norm(w)
+    assert rel < 2e-2, rel
+
+
 def test_every_config_inits_runs_and_makes_batches():
     """init_params, make_batch, forward and decode_step for every config
     of ``configs/`` (no family is refused any more)."""

@@ -9,7 +9,9 @@ without the suite's JAX fixture:
 Shapes are the fuzz harness's buckets (``tests/test_kernel_fuzz.py``) and
 the RG-LRU sweep of ``tests/test_kernels.py``, which reach widths the
 serving path never uses (dh=8, 4-token pages), plus the paths of the bf16
-tensor-core flash kernel (padded head dims, S below one mma tile) and of
+and fp32 (3xTF32) tensor-core flash kernels (padded head dims, S below one
+mma tile; the fp32 one also held to an fp64 run, at most 4x the fp32
+plain version's error) and of
 the fused step's split walk (few slots with long lens, empty shares, FREE
 rows, 100 steps on one pool) and the heads of every family's config
 (qwen2-moe 16/16, pixtral 32/8, llama4 40/8, whisper 20/20 at dh 64,
@@ -246,6 +248,72 @@ def test_flash_attention_bf16_mma_buckets(cuda, dh, S):
         torch.testing.assert_close(
             out.float(), ref.float(), atol=2e-2, rtol=2e-2,
             msg=lambda m: f"causal={causal} window={window}\n{m}")
+
+
+# the fp32 tensor-core kernel's (3xTF32) paths: head dims padded to the
+# 64, 128 and 256 buckets (8, 24, 192) and exact (64, 128, 256); S below
+# one 16-row mma tile, at it, past it, past one 64-row tile (and one
+# 128-row tile: dh 256 runs 8 warps a CTA), several tiles
+FLASH_F32_DH = [8, 24, 64, 128, 192, 256]
+FLASH_F32_S = [1, 5, 15, 16, 17, 65, 200, 1000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", FLASH_F32_S)
+@pytest.mark.parametrize("dh", FLASH_F32_DH)
+def test_flash_attention_fp32_mma_buckets(cuda, dh, S):
+    """B = 2, g = 10 query heads per KV head; causal, causal with a window
+    smaller than one 64-row tile, and non-causal; at the fp32 tolerance
+    against the plain version (TF32 off)."""
+    B, H, KVH = 2, 10, 1
+    for i, (causal, window) in enumerate([(True, None), (True, 40),
+                                          (False, None)]):
+        rng = np.random.default_rng([SEED, 12, dh, S, i])
+        q = _t(rng.standard_normal((B, H, S, dh)), "f32", cuda)
+        k = _t(rng.standard_normal((B, KVH, S, dh)), "f32", cuda)
+        v = _t(rng.standard_normal((B, KVH, S, dh)), "f32", cuda)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32
+        torch.testing.assert_close(
+            out, ref, atol=2e-5, rtol=2e-5,
+            msg=lambda m: f"causal={causal} window={window}\n{m}")
+
+
+# (H, KVH, S, dh, causal, window): the fp32 serving shapes (qwen2.5-3b,
+# recurrentgemma-2b, stablelm-1.6b, whisper's encoder), long non-causal
+# rows at the largest and smallest head dims, a padded one
+FLASH_F32_F64 = [(16, 2, 1024, 128, True, None),
+                 (10, 1, 2048, 256, True, 2048),
+                 (32, 32, 512, 64, True, None),
+                 (20, 20, 1500, 64, False, None),
+                 (10, 1, 1000, 256, False, None),
+                 (10, 1, 1000, 8, False, None),
+                 (10, 1, 1000, 192, False, None),
+                 (10, 1, 200, 24, True, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(FLASH_F32_F64)))
+def test_flash_attention_fp32_error_vs_fp64(cuda, case):
+    """The kernel's largest error against the plain version run in fp64 is
+    at most 4x the fp32 plain version's: 3xTF32 keeps fp32 accuracy,
+    where one TF32 product a piece errs ~1e-3."""
+    H, KVH, S, dh, causal, window = FLASH_F32_F64[case]
+    rng = np.random.default_rng([SEED, 13, case])
+    q, k, v = (_t(rng.standard_normal((1, h, S, dh)), "f32", cuda)
+               for h in (H, KVH, KVH))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+    exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                causal=causal, window=window)
+    torch.cuda.synchronize()
+    e_kernel = (out.double() - exact).abs().max().item()
+    e_plain = (plain.double() - exact).abs().max().item()
+    assert e_kernel <= 4 * e_plain, (
+        f"kernel error {e_kernel:.3g} against fp64 above 4x the fp32 plain "
+        f"version's {e_plain:.3g}")
 
 
 def _split_step_case(rng, B, H, KVH, dh, ps, MP, lens, dt, dev, free=()):
