@@ -36,6 +36,16 @@
       and this one's in fresh processes in the order DIR, this, this, DIR
       (this, this without DIR), with SDPA in fp32 timed in each.
 
+  python3 chip_compare.py fp32-kernels [--tree DIR]
+      the fp32 kernels on the tensor cores as 3xTF32: fp32
+      ``mlstm_chunkwise`` (B 1, H 4, dh 1024, S 1024 and 128) and the
+      fp32 decode walks (the fused step at qwen2.5-3b's and
+      recurrentgemma-2b's timed shapes, the read-only paged form, the
+      recurrentgemma-2b ring), with the bf16 kernels at the same shapes
+      beside them, by graph replay (``chip_smoke.py``'s timings), checkout
+      DIR's and this one's in fresh processes in the order DIR, this,
+      this, DIR (this, this without DIR).
+
   python3 chip_compare.py cluster DIR
       ``chip_smoke.py``'s live cluster of phase 10a (qwen2.5-3b and
       stablelm-1.6b at full width and depth, bf16, 24 requests), each
@@ -348,6 +358,44 @@ for key, (H, KVH, S, dh, causal, window) in c.FLASH_TIMED.items():
                 "sdpa_fp32": t["float32"]["library_ms"]}
 json.dump(res, open(out_path, "w"))
 """
+# One checkout's fp32 and bf16 mLSTM and decode-walk times (chip_smoke's
+# timings of THIS checkout, the wrappers of the checkout in the working
+# directory): {row: ms} for every row of FP32_ROWS, as JSON to argv[1];
+# argv[2] is this checkout's root.
+FP32K = r"""
+import json, sys
+from pathlib import Path
+out_path, root = sys.argv[1], sys.argv[2]
+sys.path[:0] = [root, "src"]
+import torch
+import chip_smoke as c
+from repro_torch.kernels import _build
+if Path(_build.__file__).resolve().parents[3] != Path.cwd().resolve():
+    raise RuntimeError(f"repro_torch imported from {_build.__file__}")
+_build.build_all(["mlstm_chunkwise", "paged_decode_step", "decode_attention"])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+W = 2048
+ring = [W + 37 * b for b in range(8)]
+res = {}
+for dt in ("float32", "bfloat16"):
+    kind = "fp32" if dt == "float32" else "bf16"
+    for S in (1024, 128):
+        res[f"mlstm {kind} S={S}"] = c._time_mlstm(S, dt)["ms"]
+    res[f"step {kind} qwen"] = c._time_paged_step(
+        16, 2, 128, 128, None, (64, 1152), seed=3, dtype_name=dt)["ms"]
+    res[f"step {kind} recurrentgemma"] = c._time_paged_step(
+        10, 1, 256, 192, 2048, (64, 3000), seed=19, dtype_name=dt)["ms"]
+    res[f"paged {kind} qwen"] = c._time_paged_attention(dt)["ms"]
+    res[f"ring {kind} recurrentgemma"] = c._time_decode(
+        10, 1, 256, ring, W, 17, dtype_name=dt)["ms"]
+json.dump(res, open(out_path, "w"))
+"""
+# the rows FP32K times, in the order they are printed
+FP32_ROWS = [f"{k} {kind} {shape}" for kind in ("fp32", "bf16")
+             for k, shape in (("mlstm", "S=1024"), ("mlstm", "S=128"),
+                              ("step", "qwen"), ("step", "recurrentgemma"),
+                              ("paged", "qwen"), ("ring", "recurrentgemma"))]
 TOKS = re.compile(r"^\[serve\] ([^:]+):.*?= ([0-9.]+) tok/s")
 LOGDIR = ROOT / "chiprun_out" / "compare"
 
@@ -386,15 +434,17 @@ def in_turns(other, once) -> dict:
     return runs
 
 
-def print_means(head: str, runs: dict, pick, unit: str = "ms") -> None:
+def print_means(head: str, runs: dict, pick, unit: str = "ms") -> dict:
     """One line: each checkout's ``pick(result)`` of every run and their
-    mean."""
-    line = f"{head}:"
+    mean; returns {label: mean}."""
+    line, means = f"{head}:", {}
     for label, rs in runs.items():
         xs = [pick(r) for r in rs]
+        means[label] = sum(xs) / len(xs)
         line += (f" {label} {[round(x, 5) for x in xs]} mean "
-                 f"{sum(xs) / len(xs):.5f} {unit};")
+                 f"{means[label]:.5f} {unit};")
     print(line, flush=True)
+    return means
 
 
 def serve_once(tree: Path, phases, label: str) -> dict:
@@ -484,6 +534,27 @@ def flash(other) -> None:
     print(c.smi(), flush=True)
 
 
+def fp32_kernels_once(tree: Path, label: str) -> dict:
+    _, res = fresh(FP32K, tree, f"fp32k_{label}", ROOT)
+    print(f"[fp32-kernels] {label}: " + "; ".join(
+        f"{k} {v:.5f}" for k, v in res.items()) + " ms", flush=True)
+    return res
+
+
+def fp32_kernels(other) -> None:
+    """Each checkout's fp32 (and bf16) mLSTM and decode walks by graph
+    replay, in turns in fresh processes; per row the runs and means, and
+    this checkout's mean over the other's."""
+    import chip_smoke as c
+    runs = in_turns(other, fp32_kernels_once)
+    for row in FP32_ROWS:
+        mean = print_means(f"[fp32-kernels] {row}", runs, lambda r: r[row])
+        if "other" in mean:
+            print(f"[fp32-kernels] {row}: this / other = "
+                  f"{mean['this'] / mean['other']:.3f}", flush=True)
+    print(c.smi(), flush=True)
+
+
 def prefill(other: Path, n: int) -> None:
     res = {}
     for label, tree in (("other", other), ("this", ROOT)):
@@ -538,7 +609,7 @@ def cluster(other: Path) -> None:
     print(c.smi(), flush=True)
 
 
-def main() -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     m = sub.add_parser("merge-share")
@@ -553,12 +624,18 @@ def main() -> int:
     c.add_argument("--chunks", default="")
     fl = sub.add_parser("flash")
     fl.add_argument("--tree", type=Path, default=None)
+    fk = sub.add_parser("fp32-kernels")
+    fk.add_argument("--tree", type=Path, default=None)
     k = sub.add_parser("cluster")
     k.add_argument("other", type=Path)
     f = sub.add_parser("prefill")
     f.add_argument("other", type=Path)
     f.add_argument("-n", type=int, default=16)
-    args = ap.parse_args()
+    return ap
+
+
+def main() -> int:
+    args = parser().parse_args()
     if not (ROOT / "chip_smoke.py").is_file():
         print("chip_compare.py: run it from a checkout of the repository",
               file=sys.stderr)
@@ -579,6 +656,9 @@ def main() -> int:
     elif args.cmd == "flash":
         sys.path.insert(0, str(ROOT))
         flash(args.tree and args.tree.resolve())
+    elif args.cmd == "fp32-kernels":
+        sys.path.insert(0, str(ROOT))
+        fp32_kernels(args.tree and args.tree.resolve())
     elif args.cmd == "cluster":
         sys.path.insert(0, str(ROOT))
         cluster(args.other.resolve())

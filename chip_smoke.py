@@ -8,16 +8,20 @@ Phases (any failure exits non-zero, with no result line):
      per source, in parallel), print the card's name and power limit and
      each kernel's registers and spills, and count the HMMA (tensor-core)
      instructions of every kernel in ``cuobjdump -sass``: each bf16
-     flash, decode-walk and mLSTM kernel and the fp32 flash kernel (3xTF32
-     on tf32 ``mma``) must have some, the fp32 decode-walk and mLSTM
-     kernels none (``MMA_KERNELS``);
+     flash, decode-walk and mLSTM kernel and each fp32 one (3xTF32 on
+     tf32 ``mma``: flash, the decode walks and the mLSTM's column
+     kernel) must have some, the fp32 mLSTM's three
+     passes before it (CUDA cores) none, and no fp32 tensor-core kernel
+     may spill (``MMA_KERNELS``; the spills from the nvcc output kept
+     beside each library);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 (TF32 off) and bf16, at the test tolerances (2e-5 and 2e-2 for
      attention, 1e-4 and 5e-2 for the RG-LRU scan), at the serving paths'
      shapes and at the edge cases (for the fused step also one and two
      slots with long lens, the split walk's few-slot ticks; for flash also
-     head dims the kernels pad; fp32 flash also against an fp64 run, at
-     most FLASH_FP64_FACTOR times the fp32 plain version's error); time
+     head dims the kernels pad; fp32 flash, the fp32 mLSTM at S 1024, the
+     fp32 fused step and the fp32 ring also against an fp64 run, at most
+     FP64_FACTOR times the fp32 plain version's error); time
      the kernel on the device (CUDA graph replay; the per-call enqueue
      time of eager launches beside it),
      its plain version and, where one exists, a PyTorch library call
@@ -28,7 +32,8 @@ Phases (any failure exits non-zero, with no result line):
      also at qwen2.5-3b's striped shape, mLSTM also at a 128-token prompt,
      the scan at four shapes (``SCAN_TIMED``) with its inputs cycled past
      the L2 and the chunk count each one used; the decode walks and the
-     mLSTM also in fp32 at their main shapes (CUDA cores);
+     mLSTM also in fp32 at their main shapes (3xTF32), the mLSTM also at
+     a 128-token prompt in fp32;
   3. serve full-width qwen2.5-3b (36 layers, d_model 2048, random bf16
      weights from a seed) through ``ContinuousBatchingEngine`` with prefix
      sharing on, then through ``InferenceEngine`` and the striped
@@ -39,7 +44,8 @@ Phases (any failure exits non-zero, with no result line):
   4. serve a few qwen2.5-3b requests in fp32 and re-run each one
      teacher-forced through ``forward`` + ``decode_step`` with the plain
      attention: every engine token must equal the reference argmax
-     wherever the reference's top-2 logit margin exceeds MARGIN;
+     wherever the reference's top-2 logit margin exceeds MARGIN (the
+     launches counted and asserted on the path, as on 6 and 8);
   5. serve full-width recurrentgemma-2b (26 layers: 18 RG-LRU and 8
      local-attention layers with window 2048, d_model 2560, random bf16
      weights) through ``InferenceEngine``, the striped engine (ring of
@@ -202,20 +208,21 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernel_fuzz.py
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
 MLSTM_TOL = {"float32": 2e-4, "bfloat16": 5e-2}  # tests/test_kernels.py
 MARGIN = 1e-3                  # top-2 logit margin for the fp32 check
-FLASH_FP64_FACTOR = 4.0        # fp32 flash vs fp64: x the plain fp32 error
+FP64_FACTOR = 4.0              # fp32 kernel vs fp64: x the plain fp32 error
 N_LAYERS = 36                  # qwen2.5-3b: every layer is attention
 HYBRID_ATTN, HYBRID_REC = 8, 18   # recurrentgemma-2b's 26 layers
 SSM_MLSTM, SSM_SLSTM = 42, 6      # xlstm-1.3b's 48 layers
 PATH_LAUNCHES = {}             # path name -> {kernel: launches in that run}
 # further timed shapes of a kernel, beside its main one: each kernel in
-# fp32 (flash's at every fp32 serving shape), dh 256, the ring decode at
+# fp32 (flash's at every fp32 serving shape, the mLSTM's also at a short
+# prompt), dh 256, the ring decode at
 # qwen2.5-3b's shape, a short prompt and the scan at a short prompt, the
 # static batch and in bf16; phase 12's families: qwen2-moe, pixtral and
 # llama4 heads, whisper's encoder (flash, non-causal) and decoder (ring
 # decode)
-EXTRA = ("fp32", "fp32_dh256", "fp32_stablelm", "fp32_whisper_enc", "dh256",
-         "qwen", "S128", "S256", "B8", "bf16", "moe", "pixtral", "llama4",
-         "whisper_enc", "whisper")
+EXTRA = ("fp32", "fp32_dh256", "fp32_stablelm", "fp32_whisper_enc",
+         "fp32_S128", "dh256", "qwen", "S128", "S256", "B8", "bf16", "moe",
+         "pixtral", "llama4", "whisper_enc", "whisper")
 # flash's fp32 serving shapes (H, KVH, S, dh, causal, window): qwen2.5-3b's
 # longest timed prompt, recurrentgemma-2b's (window 2048 = S, so causal:
 # SDPA, the yardstick, takes no window), stablelm-1.6b's in the live
@@ -323,45 +330,73 @@ def hmma_counts(source: str):
 
 
 # Kernel functions of each source that run on the tensor cores (HMMA > 0:
-# every bf16 kernel, and fp32 flash as 3xTF32, "tf32") or stay on the CUDA
-# cores (no HMMA: the fp32 decode walks and mLSTM, "fp32"): source ->
-# {mangled-name fragment: kind}.  A "Li0E" template argument is the
-# decode kernels' fp32 walk.
+# every bf16 kernel, "bf16", and every fp32 product kernel as 3xTF32,
+# "tf32") or stay on the CUDA cores (no HMMA: the fp32 mLSTM's pre-pass,
+# whose q k^T is fp32 fma chains, and its two carry passes, "cuda"): source
+# -> {mangled-name fragment: kind}, the mLSTM's in launch order.  An "If" template argument is a decode
+# kernel's fp32 walk (one instance per head-dim bucket).  A "tf32" kernel
+# must not spill.
 MMA_KERNELS = {
     "flash_attention": {"flash_mma_kernel": "bf16",
                         "flash_tf32x3_kernel": "tf32"},
     "decode_attention": {"decode_attention_kernelI13__nv_bfloat16": "bf16",
-                         "decode_attention_kernelIfLi0E": "fp32"},
+                         "decode_attention_kernelIf": "tf32"},
     "paged_decode_step": {
         "paged_decode_step_kernelI13__nv_bfloat16": "bf16",
-        "paged_decode_step_kernelIfLi0E": "fp32",
+        "paged_decode_step_kernelIf": "tf32",
         "paged_decode_attention_kernelI13__nv_bfloat16": "bf16",
-        "paged_decode_attention_kernelIfLi0E": "fp32"},
+        "paged_decode_attention_kernelIf": "tf32"},
     "mlstm_chunkwise": {"mlstm_scores_mma": "bf16",
                         "mlstm_chunkwise_mma": "bf16",
-                        "mlstm_scores_kernelIf": "fp32",
-                        "mlstm_chunkwise_kernelIf": "fp32"},
+                        "mlstm_local_f32": "cuda",
+                        "mlstm_scan_f32": "cuda",
+                        "mlstm_carry_f32": "cuda",
+                        "mlstm_chunkwise_tf32": "tf32"},
 }
+
+
+def ptxas_spills(text: str):
+    """{mangled kernel name: spill bytes (stores + loads)} from ``ptxas
+    -v`` output: each "Function properties for NAME" line is followed by
+    its "N bytes spill stores, M bytes spill loads" line."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[fn] = nums[1] + nums[2]     # stack frame, stores, loads
+            fn = None
+    return out
 
 
 def check_hmma() -> None:
     """Print the HMMA count of every kernel function of MMA_KERNELS'
-    sources and assert each bf16 and tf32 one has some and each fp32 one
-    none; every listed fragment must name at least one function."""
+    sources and assert each bf16 and tf32 one has some and each cuda one
+    none, and that no tf32 one spills (``ptxas -v``); every listed
+    fragment must name at least one function."""
+    from repro_torch.kernels import _build
     for source, kinds in MMA_KERNELS.items():
         counts = hmma_counts(source)
+        spills = ptxas_spills(_build.ptxas_output(source))
         for frag, kind in kinds.items():
             fns = {fn: n for fn, n in counts.items() if frag in fn}
             if not fns:
                 raise AssertionError(f"{source}: no kernel function named "
                                      f"like {frag} in {sorted(counts)}")
             for fn, n in sorted(fns.items()):
-                log(f"[sass {source}] {n} HMMA in {fn} ({kind})")
-                if (n > 0) != (kind != "fp32"):
+                spill = spills.get(fn)
+                log(f"[sass {source}] {n} HMMA in {fn} ({kind}); spill "
+                    f"bytes {spill}")
+                if (n > 0) != (kind != "cuda"):
                     raise AssertionError(
                         f"{source}: {fn} has {n} HMMA instructions; its "
                         f"{kind} kernel must have "
-                        f"{'some' if kind != 'fp32' else 'none'}")
+                        f"{'some' if kind != 'cuda' else 'none'}")
+                if kind == "tf32" and spill != 0:
+                    raise AssertionError(f"{source}: {fn} spills {spill} "
+                                         f"bytes (or ptxas printed none)")
 
 
 # ------------------------------------------------------------ phase 2
@@ -582,9 +617,25 @@ def check_flash(errs, dtype_name):
                    f"S={S} window={window} causal={causal}")
 
 
+def vs_fp64(what, got, plain, exact, floor=0.0):
+    """The kernel's largest error against an fp64 run, at most FP64_FACTOR
+    times the fp32 plain version's own, or than ``floor`` where that is
+    larger (a quantity the plain version happens to hit to the last bit:
+    the fp32 spacing at its largest value)."""
+    e_kernel = (got.double() - exact).abs().max().item()
+    e_plain = (plain.double() - exact).abs().max().item()
+    log(f"[fp64] {what}: max |kernel - fp64| {e_kernel:.4g}, max |plain "
+        f"fp32 - fp64| {e_plain:.4g} (ratio "
+        f"{e_kernel / max(e_plain, 1e-300):.3g})")
+    if e_kernel > FP64_FACTOR * max(e_plain, floor):
+        raise AssertionError(
+            f"{what}: error {e_kernel:.4g} against fp64 above {FP64_FACTOR}x "
+            f"the plain version's {e_plain:.4g} (floor {floor:.3g})")
+
+
 def check_flash_fp64():
     """fp32 flash at ``FLASH_TIMED``'s shapes: the kernel's largest error
-    against the plain version run in fp64, at most FLASH_FP64_FACTOR times
+    against the plain version run in fp64, at most FP64_FACTOR times
     the fp32 plain version's own (3xTF32 keeps fp32 accuracy; one TF32
     product a piece would err ~1e-3)."""
     import torch
@@ -598,16 +649,86 @@ def check_flash_fp64():
         plain = flash_attention_ref(*x, causal=causal, window=window)
         exact = flash_attention_ref(*(t.double() for t in x), causal=causal,
                                     window=window)
-        e_kernel = (got.double() - exact).abs().max().item()
-        e_plain = (plain.double() - exact).abs().max().item()
-        log(f"[fp64] flash_attention fp32 {key}: max |kernel - fp64| "
-            f"{e_kernel:.4g}, max |plain fp32 - fp64| {e_plain:.4g} (ratio "
-            f"{e_kernel / e_plain:.3g})")
-        if e_kernel > FLASH_FP64_FACTOR * e_plain:
-            raise AssertionError(
-                f"flash_attention fp32 {key}: error {e_kernel:.4g} against "
-                f"fp64 above {FLASH_FP64_FACTOR}x the plain version's "
-                f"{e_plain:.4g}")
+        vs_fp64(f"flash_attention fp32 {key}", got, plain, exact)
+
+
+def _attend_f64(q, k, v, valid):
+    """One query token a head in fp64: q (B,H,dh), k/v (B,N,KVH,dh),
+    valid (B,N) -> (B,H,dh)."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF
+    B, H, dh = q.shape
+    KVH = k.shape[2]
+    qg = q.double().reshape(B, KVH, H // KVH, dh) / math.sqrt(dh)
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k.double())
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    o = torch.einsum("bkgw,bwkd->bkgd", torch.softmax(s, dim=-1), v.double())
+    return o.reshape(B, H, dh)
+
+
+def check_fp32_fp64():
+    """The other 3xTF32 kernels against fp64, each within FP64_FACTOR
+    times the fp32 plain version's error: the mLSTM at the serving prefill
+    (B 1, H 4, S 1024, dh 1024; h, C, n and m against
+    ``mlstm_parallel_f64``), the fused step at the qwen2.5-3b and
+    recurrentgemma-2b timed shapes and the recurrentgemma-2b ring (against
+    the same attention over the valid tokens in fp64)."""
+    import torch
+    from repro_torch.kernels import (decode_attention, mlstm_chunkwise,
+                                     paged_decode_step)
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         mlstm_chunkwise_ref,
+                                         mlstm_parallel_f64,
+                                         paged_decode_step_ref)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    args = _mlstm_inputs(gen, 1, 4, 1024, 1024, "normal", torch.float32)
+    h, state = mlstm_chunkwise(*args)
+    hp, state_p = mlstm_chunkwise_ref(*args)
+    h64, _, state64 = mlstm_parallel_f64(*args)
+    for name, a, b, x in zip("hCnm", (h, *state), (hp, *state_p),
+                             (h64, *state64)):
+        ulp = torch.finfo(torch.float32).eps * x.abs().max().item()
+        vs_fp64(f"mlstm_chunkwise fp32 S=1024 {name}", a, b, x, floor=ulp)
+    del args, h, state, hp, state_p, h64, state64
+    ps = 16
+    for label, H, KVH, dh, MP, window, lens_range, seed in (
+            ("qwen", 16, 2, 128, 128, None, (64, 1152), 3),
+            ("recurrentgemma", 10, 1, 256, 192, 2048, (64, 3000), 19)):
+        B = 8
+        lens = torch.randint(*lens_range, (B,),
+                             generator=torch.Generator().manual_seed(seed))
+        x = _step_inputs(gen, B, H, KVH, dh, ps, MP, lens, torch.float32)
+        P = x["k"].shape[0]
+        step = (x["q"], x["kn"], x["vn"])
+        got = paged_decode_step(*step, x["k"].clone(), x["v"].clone(),
+                                x["table"], x["lens"], window=window)[0]
+        plain = paged_decode_step_ref(*step, x["k"].clone(), x["v"].clone(),
+                                      x["table"], x["lens"],
+                                      window=window)[0]
+        table = x["table"].long()
+        pt = torch.where(table >= 0, table, P - 1)
+        k = torch.cat([x["k"][pt].reshape(B, MP * ps, KVH, dh),
+                       x["kn"][:, None]], 1)
+        v = torch.cat([x["v"][pt].reshape(B, MP * ps, KVH, dh),
+                       x["vn"][:, None]], 1)
+        n1 = (x["lens"].long() - 1).clamp(min=0)[:, None]
+        t = torch.arange(MP * ps, device="cuda")[None]
+        valid = (t < n1) & (torch.repeat_interleave(table, ps, 1) >= 0)
+        if window is not None:
+            valid &= n1 - t < window
+        valid = torch.cat([valid, torch.ones_like(valid[:, :1])], 1)
+        vs_fp64(f"paged_decode_step fp32 {label}", got, plain,
+                _attend_f64(x["q"], k, v, valid))
+    W = 2048
+    q, k, v, spos, pos = _ring_inputs(gen, 8, 10, 1, W, 256,
+                                      [W + 37 * b for b in range(8)],
+                                      torch.float32)
+    got = decode_attention(q, k, v, spos, pos, window=W)
+    plain = decode_attention_ref(q, k, v, spos, pos, window=W)
+    sp, p2 = spos.long(), pos.long()[:, None]
+    valid = (sp >= 0) & (sp <= p2) & (p2 - sp < W)
+    vs_fp64("decode_attention fp32 recurrentgemma ring", got, plain,
+            _attend_f64(q, k, v, valid))
 
 
 def check_paged_attention(errs, dtype_name):
@@ -813,19 +934,22 @@ def time_mlstm():
     """One mLSTM layer's prefill at the serving shape: B=1, H=4, a
     1024-token prompt, dh=1024, bf16; and (``"S128"``) a 128-token prompt,
     where most serving prompts are and the 4 MiB-per-head state weighs
-    more; ``"fp32"``: the 1024-token prompt in fp32 (the CUDA-core
-    kernels)."""
+    more; ``"fp32"`` and ``"fp32_S128"``: both prompts in fp32 (the three
+    3xTF32 kernels)."""
     out = _time_mlstm(1024)
     out["S128"] = _time_mlstm(128)
     out["fp32"] = _time_mlstm(1024, "float32")
+    out["fp32_S128"] = _time_mlstm(128, "float32")
     return out
 
 
 def _time_mlstm(S, dtype_name="bfloat16"):
     """The bound counts the two dh x dh products per token (q C and the
     state update), the causal q k^T and w v products inside each 64-token
-    chunk and the n terms, at the peak of the type; and each input, h and
-    the final state once in memory."""
+    chunk and the n terms, at the peak of the type (in fp32 the 3xTF32
+    rate of the kernels' products, with the CUDA cores' beside it,
+    ``bound_cuda_core_ms``); and each input, h and the final state once
+    in memory."""
     import torch
     from repro_torch.kernels import mlstm_chunkwise
     from repro_torch.kernels.ref import MLSTM_CHUNK, mlstm_chunkwise_ref
@@ -844,12 +968,18 @@ def _time_mlstm(S, dtype_name="bfloat16"):
     n_bytes = (BH * S * dh * esz * 4 + BH * S * 4 * 2
                + BH * (dh * dh + dh + 1) * 4)
     b_ms, by = bound_ms(n_bytes, flops, dtype_name)
-    return {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "shape": f"B=1 H=4 S={S} dh=1024 {_kind(dtype_name)}, fresh "
-                     f"state (library: "
-                     f"none, no single PyTorch call computes the chunkwise "
-                     f"mLSTM recurrence)"}
+    out = {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+           "shape": f"B=1 H=4 S={S} dh=1024 {_kind(dtype_name)}, fresh "
+                    f"state (library: "
+                    f"none, no single PyTorch call computes the chunkwise "
+                    f"mLSTM recurrence)"}
+    if dtype_name == "float32":
+        out["bound_cuda_core_ms"] = b_ms
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops, "tf32x3")
+        out["shape"] += (f"; bound at the 3xTF32 rate, at the CUDA cores' "
+                         f"{b_ms:.5f} ms")
+    return out
 
 
 def time_paged_step():
@@ -859,7 +989,7 @@ def time_paged_step():
     (``"pixtral"``, 32/8) and llama4's (``"llama4"``, 40/8, window 8192,
     slots 4096..10240 tokens long) paged shapes; the qwen and
     recurrentgemma shapes in fp32 (``"fp32"``, ``"fp32_dh256"``: the
-    CUDA-core walk)."""
+    3xTF32 walk)."""
     out = _time_paged_step(16, 2, 128, 128, None, (64, 1152), seed=3)
     out["fp32"] = _time_paged_step(16, 2, 128, 128, None, (64, 1152),
                                    seed=3, dtype_name="float32")
@@ -1012,7 +1142,7 @@ def _time_flash(H, KVH, S, dh, dtype_name, causal=True, window=None,
 def time_paged_attention():
     """The read-only walk at the decode step's timed shape (8 slots,
     16/2 heads, dh 128, bf16), eight pool copies cycled past the L2; the
-    same in fp32 (``"fp32"``: the CUDA-core walk)."""
+    same in fp32 (``"fp32"``: the 3xTF32 walk)."""
     out = _time_paged_attention("bfloat16")
     out["fp32"] = _time_paged_attention("float32")
     return out
@@ -1061,7 +1191,7 @@ def time_decode():
     a 2048-token cache mid-generation (the paged step's timed lens), 16/2
     heads, dh 128, no window; and (``"whisper"``) whisper's static engine
     at its phase-12 shape: 4 slots of a 128-token cache, 20/20 heads, dh
-    64; the recurrentgemma-2b ring in fp32 (``"fp32"``: the CUDA-core
+    64; the recurrentgemma-2b ring in fp32 (``"fp32"``: the 3xTF32
     walk)."""
     import torch
     W = 2048
@@ -1472,7 +1602,13 @@ def check_fp32(seed: int):
                                    page_size=16, prefix_sharing=True)
     for i, (p, n) in enumerate(trace):
         eng.submit(p, n, req_id=i)
-    out = eng.run()
+    path = "qwen2.5-3b fp32 paged"
+    out, _, counts = drive(path, eng.run)
+    fresh = sum(1 for q in eng.sched.finished.values()
+                if q.shared_tokens == 0)
+    expect(path, counts,
+           {"paged_decode_step": N_LAYERS * eng.stats["decode_ticks"],
+            "flash_attention": N_LAYERS * fresh})
     checked = skipped = 0
     for i, (prompt, _) in enumerate(trace):
         c, k = teacher_forced(cfg, params, prompt, out[i],
@@ -1483,7 +1619,7 @@ def check_fp32(seed: int):
     log(f"[fp32] qwen2.5-3b full width fp32: {len(trace)} requests, "
         f"{checked} engine tokens equal the plain teacher-forced argmax, "
         f"{skipped} skipped (top-2 margin <= {MARGIN}); shared_tokens="
-        f"{eng.stats['shared_tokens']}")
+        f"{eng.stats['shared_tokens']}; launches {counts}")
     del eng, params
     torch.cuda.empty_cache()
 
@@ -1591,14 +1727,31 @@ def check_hybrid_fp32(seed: int) -> None:
     tok = lambda n: list(map(int, rng.integers(0, cfg.vocab_size, n)))
     short = [tok(300) for _ in range(3)]
     trace = [(p, 24) for p in short] + [(tok(2100), 24)]
-    gen = {"static": dict(enumerate(InferenceEngine(cfg, params).generate(
-        {"tokens": torch.tensor(short, device="cuda")}, 24).tolist()))}
+    static = InferenceEngine(cfg, params)
+    path = "recurrentgemma-2b fp32 static"
+    out, _, counts = drive(path, lambda: static.generate(
+        {"tokens": torch.tensor(short, device="cuda")}, 24))
+    expect(path, counts, {"rglru_scan": HYBRID_REC,
+                          "flash_attention": HYBRID_ATTN,
+                          "decode_attention": HYBRID_ATTN * 23})
+    gen = {"static": dict(enumerate(out.tolist()))}
+    launches = {path: counts}
+    del static
     for paged in (False, True):
+        path = f"recurrentgemma-2b fp32 {'paged' if paged else 'striped'}"
         eng = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=2200,
                                        page_size=16, paged=paged)
         for i, (p, n) in enumerate(trace):
             eng.submit(p, n, req_id=i)
-        gen["paged" if paged else "striped"] = eng.run()
+        out, _, counts = drive(path, eng.run)
+        s = eng.stats
+        want = {"rglru_scan": HYBRID_REC * s["prefills"],
+                "flash_attention": HYBRID_ATTN * s["prefills"]}
+        want["paged_decode_step" if paged else "decode_attention"] = \
+            HYBRID_ATTN * s["decode_ticks"]
+        expect(path, counts, want)
+        gen["paged" if paged else "striped"] = out
+        launches[path] = counts
         del eng
     checked = skipped = 0
     for path, outs in gen.items():
@@ -1613,7 +1766,7 @@ def check_hybrid_fp32(seed: int) -> None:
         f"striped and paged (4 requests each, one 2100-token prompt): "
         f"{checked} engine tokens equal the plain teacher-forced argmax "
         f"(plain attention and plain scan), {skipped} skipped (top-2 "
-        f"margin <= {MARGIN})")
+        f"margin <= {MARGIN}); launches {launches}")
     del params
     torch.cuda.empty_cache()
 
@@ -1812,14 +1965,25 @@ def check_ssm_fp32(seed: int) -> None:
     tok = lambda n: list(map(int, rng.integers(0, cfg.vocab_size, n)))
     short = [tok(300) for _ in range(3)]
     trace = [(p, 24) for p in short] + [(tok(777), 24)]
-    gen = {"static": dict(enumerate(InferenceEngine(cfg, params).generate(
-        {"tokens": torch.tensor(short, device="cuda")}, 24).tolist()))}
+    static = InferenceEngine(cfg, params)
+    path = "xlstm-1.3b fp32 static"
+    out, _, counts = drive(path, lambda: static.generate(
+        {"tokens": torch.tensor(short, device="cuda")}, 24))
+    expect(path, counts, {"mlstm_chunkwise": SSM_MLSTM})
+    gen = {"static": dict(enumerate(out.tolist()))}
+    launches = {path: counts}
+    del static
     for paged in (False, True):
+        path = f"xlstm-1.3b fp32 {'paged' if paged else 'striped'}"
         eng = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=832,
                                        page_size=16, paged=paged)
         for i, (p, n) in enumerate(trace):
             eng.submit(p, n, req_id=i)
-        gen["paged" if paged else "striped"] = eng.run()
+        out, _, counts = drive(path, eng.run)
+        expect(path, counts,
+               {"mlstm_chunkwise": SSM_MLSTM * eng.stats["prefills"]})
+        gen["paged" if paged else "striped"] = out
+        launches[path] = counts
         del eng
     checked = skipped = 0
     for path, outs in gen.items():
@@ -1834,7 +1998,7 @@ def check_ssm_fp32(seed: int) -> None:
         f"and paged (4 requests each, one a ragged 777-token prompt): "
         f"{checked} engine tokens equal the plain teacher-forced argmax "
         f"(plain mLSTM chunk loop), {skipped} skipped (top-2 margin <= "
-        f"{MARGIN})")
+        f"{MARGIN}); launches {launches}")
     del params
     torch.cuda.empty_cache()
 
@@ -3981,8 +4145,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] {_build.sources()} in {time.perf_counter() - t0:.2f} s")
-    for name, text in sorted(_build.ptxas_log.items()):
-        for line in text.splitlines():
+    for name in _build.sources():
+        for line in _build.ptxas_output(name).splitlines():
             if ("registers" in line or "spill" in line
                     or "Function properties" in line):
                 log(f"[ptxas {name}] {line.strip()}")
@@ -3998,6 +4162,7 @@ def main() -> int:
         check_flash(errs, dt)
         if dt == "float32":
             check_flash_fp64()
+            check_fp32_fp64()
         check_paged_attention(errs, dt)
         check_decode(errs, dt)
         check_scan(errs, dt)
@@ -4107,6 +4272,12 @@ def main() -> int:
     # paged_decode_attention lies on no serving path in either package:
     # only the phase 2 checks launch it, so its path count is 0
     off_path = {"paged_decode_attention"}
+    # the kernel functions a call launches, per storage type, where a call
+    # launches more than one ("launches" counts calls)
+    mlstm = MMA_KERNELS["mlstm_chunkwise"]
+    functions = {"mlstm_chunkwise": {
+        "float32": [f for f, kind in mlstm.items() if kind != "bf16"],
+        "bfloat16": [f for f, kind in mlstm.items() if kind == "bf16"]}}
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timing[name]
@@ -4124,6 +4295,8 @@ def main() -> int:
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]}
+        if name in functions:
+            entry["functions"] = functions[name]
         for extra in EXTRA:
             if extra in t:
                 entry[extra] = t[extra]

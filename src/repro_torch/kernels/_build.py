@@ -6,9 +6,11 @@ by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 location, not the working directory.  The library's file name carries a
 hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source or header rebuilds at its next use and an unchanged one
-loads as built.  Nothing is built at import
-time: the first CUDA call of a kernel builds it, and ``build_all`` builds
-every source at once (one ``nvcc`` process each, started together).
+loads as built.  Beside each library lies nvcc's output for it
+(``<library>.ptxas.txt``: ptxas's registers and spills per kernel), so a
+library that was built earlier still reports them.  Nothing is built at
+import time: the first CUDA call of a kernel builds it, and ``build_all``
+builds every source at once (one ``nvcc`` process each, started together).
 """
 from __future__ import annotations
 
@@ -28,8 +30,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas resource lines (registers, shared memory, spills) per source
-ptxas_log: Dict[str, str] = {}
 
 
 def sources() -> List[str]:
@@ -56,6 +56,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
+def _log_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".ptxas.txt")
+
+
+def ptxas_output(name: str) -> str:
+    """nvcc's output (``ptxas -v``: registers, shared memory and spills of
+    each kernel) for the library of ``csrc/<name>.cu`` on disk, whether it
+    was built by this process or an earlier one; "" if there is none."""
+    path = _log_path(name)
+    return path.read_text() if path.exists() else ""
+
+
 def _start(name: str):
     """Start nvcc for ``name`` into a temporary file; returns (proc, tmp)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -72,14 +84,18 @@ def _finish(name: str, proc, tmp: str) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-    ptxas_log[name] = out
+    log_tmp = tmp + ".ptxas.txt"
+    Path(log_tmp).write_text(out)
+    os.replace(log_tmp, _log_path(name))
     os.replace(tmp, _lib_path(name))
 
 
 def build_all(names: Sequence[str] = ()) -> None:
     """Build every listed source (all of ``csrc/`` by default) that is not
-    built yet, one nvcc process per source, all running together."""
-    todo = [n for n in (names or sources()) if not _lib_path(n).exists()]
+    built yet or has no nvcc output beside it, one nvcc process per
+    source, all running together."""
+    todo = [n for n in (names or sources())
+            if not (_lib_path(n).exists() and _log_path(n).exists())]
     started = [(n, *_start(n)) for n in todo]
     for n, proc, tmp in started:
         _finish(n, proc, tmp)

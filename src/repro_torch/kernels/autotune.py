@@ -13,8 +13,8 @@ keeps the fastest.  The JAX package also sweeps the Pallas kernel's
 sub-page block edge ``block_k``; the port's kernel has none (it walks
 fixed 32-token tiles), so the port sweeps page sizes only and stores
 ``block_k`` as None, keeping JAX's table format.  Unlike the single
-Pallas body, fp32 and bf16 run different kernels on the card (CUDA cores
-and ``mma.sync``), so the sweep times the engine's own dtype.
+Pallas body, fp32 and bf16 run different kernels on the card (3xTF32 and
+bf16 products on ``mma.sync``), so the sweep times the engine's own dtype.
 
 Results persist as a JSON table so only the FIRST engine built for a
 given (config geometry, pool, impl, device kind) pays the sweep:

@@ -18,11 +18,11 @@
 // ring: a CTA holds the query heads of one (slot b, KV head h), so each K/V
 // row is read once for all of them; masked slots are skipped, never
 // multiplied by zero (fuzzed rings hold garbage there), and a tile with no
-// valid slot is not computed.  bf16 runs the tensor-core walk (mma.sync),
-// fp32 the CUDA-core one.  The W slots are split over n_split CTAs per
-// (b, h) (split_count picks n_split to fill the card: at the
-// recurrentgemma serving shape B·KVH is only 8), and the last CTA of each
-// (b, h) to arrive merges the fp32 partials in the same launch (a second,
+// valid slot is not computed.  Both walks run on the tensor cores
+// (mma.sync: bf16 products, fp32 as 3xTF32).  The W slots are split over
+// n_split CTAs per (b, h) (split_count picks n_split to fill the card: at
+// the recurrentgemma serving shape B·KVH is only 8), and the last CTA of
+// each (b, h) to arrive merges the fp32 partials in the same launch (a second,
 // combine, launch took 57% of the kernel's time at that shape on an H100,
 // and adds a host launch per layer to a host-bound path).  A row with no
 // valid slot (the engines never make one: the new token is written before
@@ -58,9 +58,10 @@ __device__ __forceinline__ RingWalk ring_walk(const int* spos,
 
 // grid (B, KVH · row tiles, n_split): split z of (b, h, row tile) walks
 // its share and writes its partial; the last of the pair's n_split CTAs
-// to arrive merges them.  DH: 0 for the fp32 walk, else the bf16 bucket.
+// to arrive merges them.  DH: the head-dim bucket of either walk.
 template <typename T, int DH>
-__global__ void __launch_bounds__(walk_threads(DH), walk_min_blocks(DH))
+__global__ void __launch_bounds__(kMmaThreads,
+                                  walk_min_blocks(DH, sizeof(T) == 4))
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ spos,
@@ -68,7 +69,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* part, int* arrived, int H, int KVH, int dh,
                         int W, int window, float scale) {
   const int g = H / KVH;
-  const Place at(KVH, g, DH != 0, 0);
+  const Place at(KVH, g, 0);
   extern __shared__ float4 smem4[];
   const long long row_stride = (long long)KVH * dh;
   float* po = at.po(part, g, dh);
@@ -92,13 +93,13 @@ int launch(const void* q, const void* k, const void* v, const int* spos,
            int H, int KVH, int dh, int W, int window, int n_split,
            float scale, cudaStream_t stream) {
   const int g = H / KVH;
-  const size_t smem = launch_smem<DH>(g, dh, n_split, 0);
+  const size_t smem = launch_smem<T, DH>(g, dh, n_split, 0);
   cudaError_t err = cudaFuncSetAttribute(
       decode_attention_kernel<T, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decode_attention_kernel<T, DH><<<dim3(B, KVH * row_tiles(DH, g), n_split),
-                                   walk_threads(DH), smem, stream>>>(
+  decode_attention_kernel<T, DH><<<dim3(B, KVH * row_tiles(g), n_split),
+                                   kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), spos, pos, static_cast<T*>(out), part,
       arrived, H, KVH, dh, W, window, scale);
@@ -107,14 +108,14 @@ int launch(const void* q, const void* k, const void* v, const int* spos,
 
 template <typename T, int DH>
 int splits(int pairs, int n_tokens, int g, int dh, int device) {
-  return split_count(decode_attention_kernel<T, DH>, walk_threads(DH),
-                     walk_smem_bytes(DH, g, dh), pairs * row_tiles(DH, g),
-                     n_tokens, device);
+  return split_count(decode_attention_kernel<T, DH>, kMmaThreads,
+                     walk_smem_bytes<T>(DH), pairs * row_tiles(g),
+                     n_tokens, device, walk_fill<T>());
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core walk), 1 = bfloat16 (tensor-core walk).
+// dtype: 0 = float32 (3xTF32 walk), 1 = bfloat16 (bf16 mma walk).
 // window <= 0 means no window.  part: fp32 scratch of
 // B·KVH·n_split·(H/KVH)·(dh+2) floats; arrived: B·KVH·ceil(H/KVH / 16)
 // int32 arrival counters, zero on entry and left zero by the launch (calls

@@ -23,13 +23,13 @@
 // Design: CTAs, each holding query heads of one KV head, walk the slot's
 // page table themselves (decode_attend.cuh), bounded by lens[b] rather
 // than by the table's full width as the TPU grid was; a tile whose pages
-// are all unallocated is skipped.  bf16 runs the tensor-core walk
-// (mma.sync), fp32 the CUDA-core one.  Both entry points split each (slot
-// b, KV head) walk over n_split CTAs (split_walk), as flash-decoding does:
-// with few slots, one CTA each would leave most of the 132 SMs idle.  Each
-// CTA writes its unnormalised fp32 partial and the last to arrive merges
-// them in the same launch (merge_pair): one launch per layer and tick, as
-// a second launch would add host work to a host-bound path.
+// are all unallocated is skipped.  Both walks run on the tensor cores
+// (mma.sync: bf16 products, fp32 as 3xTF32).  Both entry points split each
+// (slot b, KV head) walk over n_split CTAs (split_walk), as flash-decoding
+// does: with few slots, one CTA each would leave most of the 132 SMs idle.
+// Each CTA writes its unnormalised fp32 partial and the last to arrive
+// merges them in the same launch (merge_pair): one launch per layer and
+// tick, as a second launch would add host work to a host-bound path.
 //   The fused step attends the new token from the operand (as the TPU
 //   kernel does): the CTA that appends it also writes it as one more
 //   partial of its pair (score q·k_new, l = 1, value v_new), so the merge
@@ -89,10 +89,11 @@ __device__ __forceinline__ PagedWalk paged_walk(const int* table, int b,
 
 // grid (B, KVH · row tiles, n_split): split z of (b, h, row tile) walks its
 // share and writes its partial; the last of the n_split CTAs to arrive
-// merges them with the new token.  DH: 0 for the fp32 walk, else the bf16
-// bucket.
+// merges them with the new token.  DH: the head-dim bucket of either
+// walk.
 template <typename T, int DH>
-__global__ void __launch_bounds__(walk_threads(DH), walk_min_blocks(DH))
+__global__ void __launch_bounds__(kMmaThreads,
+                                  walk_min_blocks(DH, sizeof(T) == 4))
 paged_decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                          const T* __restrict__ v_new, T* k_pages, T* v_pages,
                          const int* __restrict__ table,
@@ -100,7 +101,7 @@ paged_decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                          float* part, int* arrived, int H, int KVH, int dh,
                          int P, int ps, int MP, int window, float scale) {
   const int g = H / KVH;
-  const Place at(KVH, g, DH != 0, 1);
+  const Place at(KVH, g, 1);
   const int b = at.b, z = blockIdx.z, n_split = gridDim.z;
   extern __shared__ float4 smem4[];
 
@@ -149,7 +150,8 @@ paged_decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
 // grid (B, KVH · row tiles, n_split): the read-only form of the above
 template <typename T, int DH>
-__global__ void __launch_bounds__(walk_threads(DH), walk_min_blocks(DH))
+__global__ void __launch_bounds__(kMmaThreads,
+                                  walk_min_blocks(DH, sizeof(T) == 4))
 paged_decode_attention_kernel(const T* __restrict__ q,
                               const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
@@ -159,7 +161,7 @@ paged_decode_attention_kernel(const T* __restrict__ q,
                               int H, int KVH, int dh, int P, int ps, int MP,
                               int window, float scale) {
   const int g = H / KVH;
-  const Place at(KVH, g, DH != 0, 0);
+  const Place at(KVH, g, 0);
   const int n = lens[at.b] > 0 ? lens[at.b] : 0;
   extern __shared__ float4 smem4[];
   const PagedWalk whole = paged_walk(table, at.b, ps, MP, P, n, n - 1,
@@ -186,14 +188,14 @@ int launch_step(const void* q, const void* k_new, const void* v_new,
                 int H, int KVH, int dh, int P, int ps, int MP, int window,
                 int n_split, float scale, cudaStream_t stream) {
   const int g = H / KVH;
-  const size_t smem = launch_smem<DH>(g, dh, n_split, 1);
+  const size_t smem = launch_smem<T, DH>(g, dh, n_split, 1);
   cudaError_t err = cudaFuncSetAttribute(
       paged_decode_step_kernel<T, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_decode_step_kernel<T, DH><<<dim3(B, KVH * row_tiles(DH, g),
+  paged_decode_step_kernel<T, DH><<<dim3(B, KVH * row_tiles(g),
                                          n_split),
-                                    walk_threads(DH), smem, stream>>>(
+                                    kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<T*>(k_pages),
       static_cast<T*>(v_pages), table, lens, static_cast<T*>(out), part,
@@ -208,14 +210,14 @@ int launch_attn(const void* q, const void* k_pages, const void* v_pages,
                 int MP, int window, int n_split, float scale,
                 cudaStream_t stream) {
   const int g = H / KVH;
-  const size_t smem = launch_smem<DH>(g, dh, n_split, 0);
+  const size_t smem = launch_smem<T, DH>(g, dh, n_split, 0);
   cudaError_t err = cudaFuncSetAttribute(
       paged_decode_attention_kernel<T, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_decode_attention_kernel<T, DH><<<dim3(B, KVH * row_tiles(DH, g),
+  paged_decode_attention_kernel<T, DH><<<dim3(B, KVH * row_tiles(g),
                                               n_split),
-                                         walk_threads(DH), smem, stream>>>(
+                                         kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), table, lens, static_cast<T*>(out),
       part, arrived, H, KVH, dh, P, ps, MP, window, scale);
@@ -224,9 +226,9 @@ int launch_attn(const void* q, const void* k_pages, const void* v_pages,
 
 template <typename T, int DH>
 int splits(int pairs, int n_tokens, int g, int dh, int device) {
-  return split_count(paged_decode_step_kernel<T, DH>, walk_threads(DH),
-                     walk_smem_bytes(DH, g, dh), pairs * row_tiles(DH, g),
-                     n_tokens, device);
+  return split_count(paged_decode_step_kernel<T, DH>, kMmaThreads,
+                     walk_smem_bytes<T>(DH), pairs * row_tiles(g),
+                     n_tokens, device, walk_fill<T>());
 }
 
 inline bool args_ok(int H, int KVH, int dh, int n_split) {
@@ -235,7 +237,7 @@ inline bool args_ok(int H, int KVH, int dh, int n_split) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core walk), 1 = bfloat16 (tensor-core walk).
+// dtype: 0 = float32 (3xTF32 walk), 1 = bfloat16 (bf16 mma walk).
 // window <= 0 means no window.  Both return the cudaError_t of the launch
 // (0 = launched).  part: fp32 scratch of B·KVH·(n_split+1)·(H/KVH)·(dh+2)
 // floats for the step (the new token is one more entry), n_split in

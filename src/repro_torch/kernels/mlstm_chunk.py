@@ -26,11 +26,22 @@ _ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _F32 = torch.float32
 
 
+def _scratch_floats(dh: int, code: int) -> int:
+    """fp32 scratch per (head, chunk) of the kernels of storage type
+    ``code`` (``mlstm_chunkwise_launch``): the chunk's q k^T scores in bf16;
+    in fp32 its weights, the pre-pass's gate vectors and carries (5 chunk
+    + 4 floats) and nk, then the n before the chunk (dh floats)."""
+    L = MLSTM_CHUNK
+    return L * L if code else L * L + 5 * L + 4 + dh
+
+
 def mlstm_chunkwise(q, k, v, i_pre, f_pre, state=None):
     """q, k, v: (B,H,S,dh); i_pre, f_pre: (B,H,S); ``state`` (C, n, m) to
     start from, or None for a fresh one.  Returns (h, (C, n, m)).
-    ``mlstm_chunkwise.launches`` counts the kernel launches (CPU calls are
-    not counted)."""
+    ``mlstm_chunkwise.launches`` counts the calls that launched the kernels
+    (CPU calls are not counted): one a call, though an fp32 call launches
+    four (``mlstm_local_f32``, ``mlstm_scan_f32``, ``mlstm_carry_f32``,
+    ``mlstm_chunkwise_tf32``) and a bf16 call two."""
     if q.device.type == "cpu":
         return mlstm_chunkwise_ref(q, k, v, i_pre, f_pre, state)
     if q.device.type != "cuda":
@@ -57,7 +68,7 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state=None):
     f_pre = f_pre.to(_F32).contiguous()
     BH = B * H
     nc = -(-S // MLSTM_CHUNK)
-    scores = torch.empty((BH, nc, MLSTM_CHUNK, MLSTM_CHUNK), dtype=_F32,
+    scores = torch.empty((BH * nc * _scratch_floats(dh, code),), dtype=_F32,
                          device=q.device)
     h = torch.empty_like(q)
     C = torch.empty((B, H, dh, dh), dtype=_F32, device=q.device)

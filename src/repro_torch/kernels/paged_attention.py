@@ -30,7 +30,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-# query heads of one row tile of the bf16 decode walk (kRows in
+# query heads of one row tile of the decode walks (kRows in
 # csrc/decode_attend.cuh)
 _ROWS = 16
 

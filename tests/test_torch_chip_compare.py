@@ -128,8 +128,42 @@ def test_in_turns_puts_this_checkout_between_the_other(tmp_path, other,
         assert calls == [(other, "other_1"), (this, "this_1"),
                          (this, "this_2"), (other, "other_2")]
         assert runs == {"other": [1.0, 4.0], "this": [2.0, 3.0]}
-    chip_compare.print_means("[x] k", runs, lambda r: r)
+    means = chip_compare.print_means("[x] k", runs, lambda r: r)
+    assert means == ({"other": 2.5, "this": 2.5} if other
+                     else {"this": 1.5})
     line = capsys.readouterr().out
     want = ("this [2.0, 3.0] mean 2.50000 ms;" if other
             else "this [1.0, 2.0] mean 1.50000 ms;")
     assert line.startswith("[x] k:") and want in line
+
+
+def test_fp32_kernels_parses_and_prints_every_row(tmp_path, monkeypatch,
+                                                  capsys):
+    """``fp32-kernels [--tree DIR]``: each checkout's rows by fresh
+    processes in turns (DIR, this, this, DIR), one line of runs and means
+    per row of FP32_ROWS and this checkout's mean over DIR's."""
+    args = chip_compare.parser().parse_args(["fp32-kernels", "--tree",
+                                             str(tmp_path)])
+    assert args.cmd == "fp32-kernels" and args.tree == tmp_path
+    assert chip_compare.parser().parse_args(["fp32-kernels"]).tree is None
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "smi", lambda: "card, 700.00 W")
+    calls = []
+
+    def fake(script, tree, label, *argv):
+        assert script is chip_compare.FP32K and argv == (chip_compare.ROOT,)
+        calls.append((tree, label))
+        ms = 2.0 if tree == tmp_path else 1.0
+        return "", {row: ms for row in chip_compare.FP32_ROWS}
+    monkeypatch.setattr(chip_compare, "fresh", fake)
+    chip_compare.fp32_kernels(tmp_path)
+    this = chip_compare.ROOT
+    assert calls == [(tmp_path, "fp32k_other_1"), (this, "fp32k_this_1"),
+                     (this, "fp32k_this_2"), (tmp_path, "fp32k_other_2")]
+    out = capsys.readouterr().out
+    assert len(chip_compare.FP32_ROWS) == 12
+    for row in chip_compare.FP32_ROWS:
+        assert (f"[fp32-kernels] {row}: other [2.0, 2.0] mean 2.00000 ms; "
+                f"this [1.0, 1.0] mean 1.00000 ms;") in out
+        assert f"[fp32-kernels] {row}: this / other = 0.500" in out
+    assert out.rstrip().endswith("card, 700.00 W")

@@ -731,17 +731,17 @@ WALK_G = [1, 3, 8, 10, 16, 17]
 WALK_DH = [8, 24, 128, 256]
 
 
-def _walk_case(rng, entry, B, g, dh, window, dev, empty_row):
-    """(kernel, plain) outputs of one bf16 call of ``entry`` ("ring",
-    "paged" read-only or "step"), KVH = 2, over walks of up to 208 tokens.
+def _walk_case(rng, entry, B, g, dh, window, dev, empty_row, dt="bf16"):
+    """(kernel, plain) outputs of one call of ``entry`` ("ring", "paged"
+    read-only or "step") in ``dt``, KVH = 2, over walks of up to 208 tokens.
     With ``empty_row``, row 0 of the read-only forms has no valid token
     (the uniform mean over every entry, so no garbage is planted);
     otherwise masked ring slots and the trash page hold NaN."""
     KVH, ps, MP = 2, 16, 13
     H = g * KVH
-    q = _t(rng.standard_normal((B, H, dh)), "bf16", dev)
+    q = _t(rng.standard_normal((B, H, dh)), dt, dev)
     if entry == "ring":
-        _, k, v, spos, pos = _ring(rng, B, H, KVH, 200, dh, "bf16", dev)
+        _, k, v, spos, pos = _ring(rng, B, H, KVH, 200, dh, dt, dev)
         kk, vv = k.clone(), v.clone()
         if empty_row:
             spos[0] = -1
@@ -754,7 +754,7 @@ def _walk_case(rng, entry, B, g, dh, window, dev, empty_row):
     lens = [int(rng.integers(1, MP * ps + 1)) for _ in range(B)]
     if empty_row and entry == "paged":
         lens[0] = 0
-    x, table, ln = _split_step_case(rng, B, H, KVH, dh, ps, MP, lens, "bf16",
+    x, table, ln = _split_step_case(rng, B, H, KVH, dh, ps, MP, lens, dt,
                                     dev)
     k, v = x[3].clone(), x[4].clone()
     if not empty_row:
@@ -790,6 +790,26 @@ def test_decode_walk_bf16_heads_and_head_dims(cuda, entry, g, dh):
         assert torch.isfinite(out.float()).all(), what
         torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                    rtol=2e-2, msg=lambda m: f"{what}\n{m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", WALK_DH)
+@pytest.mark.parametrize("g", WALK_G)
+@pytest.mark.parametrize("entry", ["ring", "paged", "step"])
+def test_decode_walk_fp32_heads_and_head_dims(cuda, entry, g, dh):
+    """The fp32 walk (3xTF32, 8-key warp tiles; row tiles of 16 query
+    heads as the bf16 walk's) over the same cases: within 2e-5 of the
+    plain version, and finite."""
+    for i, (window, empty_row) in enumerate([(None, True), (64, False),
+                                             (None, False), (64, True)]):
+        rng = np.random.default_rng([SEED, 23, WALK_G.index(g), dh, i])
+        out, ref = _walk_case(rng, entry, 3, g, dh, window, cuda, empty_row,
+                              "f32")
+        torch.cuda.synchronize()
+        what = f"{entry} g={g} dh={dh} window={window} empty={empty_row}"
+        assert torch.isfinite(out).all(), what
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5,
+                                   msg=lambda m: f"{what}\n{m}")
 
 
 @pytest.mark.gpu
