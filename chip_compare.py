@@ -34,7 +34,15 @@
       serving shapes (``FLASH_TIMED``: qwen2.5-3b, recurrentgemma-2b,
       stablelm-1.6b, whisper's encoder), by graph replay, checkout DIR's
       and this one's in fresh processes in the order DIR, this, this, DIR
-      (this, this without DIR), with SDPA in fp32 timed in each.
+      (this, this without DIR), with SDPA in fp32 and bf16 timed in each,
+      and bf16 also on the transposed views ``layers.full_attention``
+      passes.
+
+  python3 chip_compare.py flash-ablate [--tree DIR]
+      bf16 ``flash_attention`` at ``chip_smoke.py``'s bf16 timed shapes
+      (``FLASH_BF16_TIMED``) as it is and under each ablation of its
+      design (``FLASH_ABLATIONS``: no head pairs, no split pairs, 2-stage
+      rings, no exponent), in turns in one process.
 
   python3 chip_compare.py fp32-kernels [--tree DIR]
       the fp32 kernels on the tensor cores as 3xTF32: fp32
@@ -141,12 +149,12 @@ def import_port(tree: Path):
                            f"not from {tree}")
 
 
-def patched_times(cases, patch, name: str, iters: int) -> dict:
+def patched_times(cases, patch, name: str, iters: int, swap=None) -> dict:
     """Each case's device ms (``chip_smoke.graph_ms``) built from the
     sources as they are and from a copy that ``patch(csrc, dest)`` made
     under ``name`` in the build directory, in turns (as is, patched,
-    patched, as is): {case: (as-is mean, patched mean, as-is runs,
-    patched runs)}."""
+    patched, as is), ``swap(patched)`` called before each turn where
+    given: {case: (as-is mean, patched mean, as-is runs, patched runs)}."""
     import chip_smoke as c
     from repro_torch.kernels import _build
     csrc = _build.CSRC
@@ -158,13 +166,83 @@ def patched_times(cases, patch, name: str, iters: int) -> dict:
             _build.CSRC = dest if patched else csrc
             _build._libs.clear()
             _build.n_split.cache_clear()
+            if swap:
+                swap(patched)
             for k, fn in cases.items():
                 runs[k][patched].append(c.graph_ms(fn, iters=iters))
     finally:
         _build.CSRC = csrc
         _build._libs.clear()
         _build.n_split.cache_clear()
+        if swap:
+            swap(False)
     return {k: (sum(a) / 2, sum(b) / 2, a, b) for k, (a, b) in runs.items()}
+
+
+# Ablations of the bf16 flash kernel's design that ``flash-ablate`` times
+# against the kernel as it is: text patches (old, new) of
+# csrc/flash_attention.cu, and a function of the wrapper's module replaced
+# (name, stand-in).  "no-exp" computes no exponent (wrong results, a
+# timing only: the softmax's exponent cost).
+FLASH_ABLATIONS = {
+    "head-pairs-off": ((), ("use_head_pairs", lambda bucket, g: False)),
+    "split-off": ((), ("split_plan", lambda *args: (0, 1))),
+    "two-stages": ((("launch_wgmma<64, key_tile(64), 3>",
+                     "launch_wgmma<64, key_tile(64), 2>"),
+                    ("launch_wgmma<128, key_tile(128), 3>",
+                     "launch_wgmma<128, key_tile(128), 2>")), None),
+    "no-exp": ((('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+                 "y = fmaf(x, 0.f, 1.f);"),), None),
+}
+
+
+def ablated_sources(patches, csrc: Path, dest: Path) -> None:
+    """Copy ``csrc`` to ``dest`` with each (old, new) of ``patches``
+    applied to flash_attention.cu; raises where a patch finds nothing."""
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(csrc, dest)
+    path = dest / "flash_attention.cu"
+    text = path.read_text()
+    for old, new in patches:
+        if old not in text:
+            raise RuntimeError(f"flash ablation: {old!r} was not found in "
+                               f"{path.name}")
+        text = text.replace(old, new)
+    path.write_text(text)
+
+
+def flash_ablate(tree: Path) -> None:
+    """bf16 flash at ``chip_smoke.FLASH_BF16_TIMED`` as it is and under
+    each of ``FLASH_ABLATIONS``, in turns."""
+    import_port(tree)
+    import torch
+    import chip_smoke as c
+    fa = sys.modules["repro_torch.kernels.flash_attention"]
+    cases = {}
+    for key, (H, KVH, S, dh, causal, window) in c.FLASH_BF16_TIMED.items():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v = (torch.randn((1, h, S, dh), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (H, KVH, KVH))
+        cases[key] = (lambda q=q, k=k, v=v, causal=causal, window=window:
+                      fa.flash_attention(q, k, v, causal=causal,
+                                         window=window))
+    for name, (patches, attr) in FLASH_ABLATIONS.items():
+        kept = getattr(fa, attr[0]) if attr else None
+
+        def swap(patched, attr=attr, kept=kept):
+            if attr:
+                setattr(fa, attr[0], attr[1] if patched else kept)
+        times = patched_times(
+            cases, lambda csrc, dest, patches=patches: ablated_sources(
+                patches, csrc, dest),
+            f"csrc_{name}", 20, swap)
+        for k, (ms, abl, a, b) in times.items():
+            print(f"[ablate] bf16 flash {k} {c.FLASH_BF16_TIMED[k]} {name}: "
+                  f"{ms:.5f} ms as is, {abl:.5f} ms ablated ({abl / ms:.3f}x;"
+                  f" runs {[round(x, 5) for x in a]} / "
+                  f"{[round(x, 5) for x in b]})", flush=True)
+    print(c.smi(), flush=True)
 
 
 def split_share(tree: Path) -> None:
@@ -334,7 +412,8 @@ json.dump(res, open(out_path, "w"))
 """
 # One checkout's flash times at FLASH_TIMED (chip_smoke._time_flash of
 # THIS checkout, the flash wrapper of the checkout in the working
-# directory): {shape: {"float32", "bfloat16", "sdpa_fp32": ms}}, as JSON
+# directory): {shape: {"float32", "bfloat16", "bfloat16_strided",
+# "sdpa_fp32", "sdpa_bf16": ms}}, as JSON
 # to argv[1]; argv[2] is this checkout's root.
 FLASH = r"""
 import json, sys
@@ -355,7 +434,9 @@ for key, (H, KVH, S, dh, causal, window) in c.FLASH_TIMED.items():
                            iters=c.FLASH_ITERS.get(key, 50))
          for dt in ("float32", "bfloat16")}
     res[key] = {"float32": t["float32"]["ms"], "bfloat16": t["bfloat16"]["ms"],
-                "sdpa_fp32": t["float32"]["library_ms"]}
+                "bfloat16_strided": t["bfloat16"]["strided_ms"],
+                "sdpa_fp32": t["float32"]["library_ms"],
+                "sdpa_bf16": t["bfloat16"]["library_ms"]}
 json.dump(res, open(out_path, "w"))
 """
 # One checkout's fp32 and bf16 mLSTM and decode-walk times (chip_smoke's
@@ -517,8 +598,10 @@ def scan(other, counts: str) -> None:
 def flash_once(tree: Path, label: str) -> dict:
     _, res = fresh(FLASH, tree, f"flash_{label}", ROOT)
     print(f"[flash] {label}: " + "; ".join(
-        f"{k} fp32 {v['float32']:.5f} bf16 {v['bfloat16']:.5f} SDPA fp32 "
-        f"{v['sdpa_fp32']:.5f} ms" for k, v in res.items()), flush=True)
+        f"{k} fp32 {v['float32']:.5f} bf16 {v['bfloat16']:.5f} (strided "
+        f"views {v['bfloat16_strided']:.5f}) SDPA fp32 {v['sdpa_fp32']:.5f} "
+        f"bf16 {v['sdpa_bf16']:.5f} ms" for k, v in res.items()),
+        flush=True)
     return res
 
 
@@ -528,7 +611,8 @@ def flash(other) -> None:
     import chip_smoke as c
     runs = in_turns(other, flash_once)
     for key, shape in c.FLASH_TIMED.items():
-        for what in ("float32", "bfloat16", "sdpa_fp32"):
+        for what in ("float32", "bfloat16", "bfloat16_strided", "sdpa_fp32",
+                     "sdpa_bf16"):
             print_means(f"[flash] {key} {shape} {what}", runs,
                         lambda r: r[key][what])
     print(c.smi(), flush=True)
@@ -624,6 +708,8 @@ def parser() -> argparse.ArgumentParser:
     c.add_argument("--chunks", default="")
     fl = sub.add_parser("flash")
     fl.add_argument("--tree", type=Path, default=None)
+    fa = sub.add_parser("flash-ablate")
+    fa.add_argument("--tree", type=Path, default=ROOT)
     fk = sub.add_parser("fp32-kernels")
     fk.add_argument("--tree", type=Path, default=None)
     k = sub.add_parser("cluster")
@@ -656,6 +742,8 @@ def main() -> int:
     elif args.cmd == "flash":
         sys.path.insert(0, str(ROOT))
         flash(args.tree and args.tree.resolve())
+    elif args.cmd == "flash-ablate":
+        flash_ablate(args.tree.resolve())
     elif args.cmd == "fp32-kernels":
         sys.path.insert(0, str(ROOT))
         fp32_kernels(args.tree and args.tree.resolve())

@@ -231,6 +231,12 @@ FLASH_TIMED = {"qwen": (16, 2, 1024, 128, True, None),
                "dh256": (10, 1, 2048, 256, True, 2048),
                "stablelm": (32, 32, 512, 64, True, None),
                "whisper_enc": (20, 20, 1500, 64, False, None)}
+# flash's bf16 timed shapes: qwen2.5-3b's longest timed prompt (the main
+# entry), recurrentgemma-2b's, qwen2-moe's heads, whisper's encoder
+FLASH_BF16_TIMED = {"qwen": (16, 2, 1024, 128, True, None),
+                    "dh256": (10, 1, 2048, 256, True, 2048),
+                    "moe": (16, 16, 1024, 128, True, None),
+                    "whisper_enc": (20, 20, 1500, 64, False, None)}
 # graph replays (and eager calls) a flash timing takes; 50 at other shapes
 FLASH_ITERS = {"dh256": 10}
 # the scan's timed shapes (B, S, d, dtype): one RG-LRU layer's prefill of a
@@ -309,10 +315,14 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
-def hmma_counts(source: str):
-    """HMMA (tensor-core mma) instructions per kernel function in the built
-    library of ``csrc/<source>.cu``, from ``cuobjdump -sass`` (the CUDA
-    toolkit's, beside nvcc)."""
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+
+
+def sass_counts(source: str):
+    """{kernel function: {opcode: instructions}} for the tensor-core
+    opcodes of ``SASS_OPS`` (``mma.sync`` HMMA, ``wgmma`` HGMMA, tensor-map
+    TMA loads UTMALDG) in the built library of ``csrc/<source>.cu``, from
+    ``cuobjdump -sass`` (the CUDA toolkit's, beside nvcc)."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
@@ -323,21 +333,25 @@ def hmma_counts(source: str):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            words = line.replace(".", " ").replace(";", " ").split()
+            for op in SASS_OPS:
+                if op in words:
+                    counts[fn][op] += 1
     return counts
 
 
-# Kernel functions of each source that run on the tensor cores (HMMA > 0:
-# every bf16 kernel, "bf16", and every fp32 product kernel as 3xTF32,
-# "tf32") or stay on the CUDA cores (no HMMA: the fp32 mLSTM's pre-pass,
-# whose q k^T is fp32 fma chains, and its two carry passes, "cuda"): source
-# -> {mangled-name fragment: kind}, the mLSTM's in launch order.  An "If" template argument is a decode
-# kernel's fp32 walk (one instance per head-dim bucket).  A "tf32" kernel
-# must not spill.
+# Kernel functions of each source by how they use the tensor cores:
+# "wgmma" (the bf16 flash kernel: HGMMA and UTMALDG, no HMMA), "bf16" (the
+# other bf16 kernels: HMMA) and "tf32" (every fp32 product kernel as
+# 3xTF32: HMMA), or not at all, "cuda" (no HMMA: the fp32 mLSTM's
+# pre-pass, whose q k^T is fp32 fma chains, and its two carry passes):
+# source -> {mangled-name fragment: kind}, the mLSTM's in launch order.  An
+# "If" template argument is a decode kernel's fp32 walk (one instance per
+# head-dim bucket).  A "tf32" or "wgmma" kernel must not spill.
 MMA_KERNELS = {
-    "flash_attention": {"flash_mma_kernel": "bf16",
+    "flash_attention": {"flash_wgmma_kernel": "wgmma",
                         "flash_tf32x3_kernel": "tf32"},
     "decode_attention": {"decode_attention_kernelI13__nv_bfloat16": "bf16",
                          "decode_attention_kernelIf": "tf32"},
@@ -353,6 +367,10 @@ MMA_KERNELS = {
                         "mlstm_carry_f32": "cuda",
                         "mlstm_chunkwise_tf32": "tf32"},
 }
+# opcodes each kind must have (> 0) and must not have
+SASS_RULES = {"wgmma": (("HGMMA", "UTMALDG"), ("HMMA",)),
+              "bf16": (("HMMA",), ()), "tf32": (("HMMA",), ()),
+              "cuda": ((), ("HMMA",))}
 
 
 def ptxas_spills(text: str):
@@ -372,29 +390,33 @@ def ptxas_spills(text: str):
 
 
 def check_hmma() -> None:
-    """Print the HMMA count of every kernel function of MMA_KERNELS'
-    sources and assert each bf16 and tf32 one has some and each cuda one
-    none, and that no tf32 one spills (``ptxas -v``); every listed
-    fragment must name at least one function."""
+    """Print the tensor-core opcode counts of every kernel function of
+    MMA_KERNELS' sources and assert each kind's ``SASS_RULES`` (the bf16
+    flash kernel: HGMMA and UTMALDG, no HMMA; other bf16 and tf32 ones:
+    HMMA; cuda ones: none), and that no tf32 or wgmma one spills (``ptxas
+    -v``); every listed fragment must name at least one function."""
     from repro_torch.kernels import _build
     for source, kinds in MMA_KERNELS.items():
-        counts = hmma_counts(source)
+        counts = sass_counts(source)
         spills = ptxas_spills(_build.ptxas_output(source))
         for frag, kind in kinds.items():
             fns = {fn: n for fn, n in counts.items() if frag in fn}
             if not fns:
                 raise AssertionError(f"{source}: no kernel function named "
                                      f"like {frag} in {sorted(counts)}")
-            for fn, n in sorted(fns.items()):
+            need, forbid = SASS_RULES[kind]
+            for fn, ops in sorted(fns.items()):
                 spill = spills.get(fn)
-                log(f"[sass {source}] {n} HMMA in {fn} ({kind}); spill "
-                    f"bytes {spill}")
-                if (n > 0) != (kind != "cuda"):
+                log(f"[sass {source}] "
+                    + ", ".join(f"{ops[op]} {op}" for op in SASS_OPS)
+                    + f" in {fn} ({kind}); spill bytes {spill}")
+                if (any(ops[op] == 0 for op in need)
+                        or any(ops[op] > 0 for op in forbid)):
                     raise AssertionError(
-                        f"{source}: {fn} has {n} HMMA instructions; its "
-                        f"{kind} kernel must have "
-                        f"{'some' if kind != 'cuda' else 'none'}")
-                if kind == "tf32" and spill != 0:
+                        f"{source}: {fn} has {ops}; its {kind} kernel must "
+                        f"have {' and '.join(need) or 'no tensor-core op'}"
+                        + (f" and no {', '.join(forbid)}" if forbid else ""))
+                if kind in ("tf32", "wgmma") and spill != 0:
                     raise AssertionError(f"{source}: {fn} spills {spill} "
                                          f"bytes (or ptxas printed none)")
 
@@ -585,7 +607,10 @@ def check_flash(errs, dtype_name):
     and 256 buckets (8, 24, 192), and phase 12's: qwen2-moe (16/16, dh
     128), pixtral (32/8), llama4 (40/8, window 8192), whisper (20/20, dh
     64) non-causal over its 1500 encoder frames and causal in its
-    decoder."""
+    decoder.  Then the transposed views ``layers.full_attention`` passes
+    (heads of a (B,S,heads,dh) projection) at the qwen, recurrentgemma,
+    whisper and llama4 shapes: the bf16 kernel reads them in place and
+    writes an output with q's strides."""
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -615,6 +640,23 @@ def check_flash(errs, dtype_name):
         errs.check("flash_attention", dtype_name, out, ref,
                    f"flash_attention {dtype_name} H={H} KVH={KVH} dh={dh} "
                    f"S={S} window={window} causal={causal}")
+    strided = [(16, 2, 128, S, None, True) for S in (17, 1000)]
+    strided += [(10, 1, 256, 2600, 2048, True),
+                (20, 20, 64, 1500, None, False),
+                (40, 8, 128, 1000, 8192, True)]
+    for H, KVH, dh, S, window, causal in strided:
+        f = lambda h: torch.randn((2, S, h, dh), generator=gen,
+                                  device="cuda").to(dtype).transpose(1, 2)
+        q, k, v = f(H), f(KVH), f(KVH)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        what = (f"flash_attention {dtype_name} strided B=2 H={H} KVH={KVH} "
+                f"dh={dh} S={S} window={window} causal={causal}")
+        errs.check("flash_attention", dtype_name, out, ref, what)
+        if dtype_name == "bfloat16" and out.stride() != q.stride():
+            raise AssertionError(f"{what}: out strides {out.stride()}, q's "
+                                 f"{q.stride()}")
 
 
 def vs_fp64(what, got, plain, exact, floor=0.0):
@@ -1057,22 +1099,21 @@ def _time_paged_step(H, KVH, dh, MP, window, lens_range, seed,
 
 def time_flash():
     """Kernel, plain, library call and bound at the longest prompt the
-    serving phase prefills (S=1024), bf16 (the ``mma`` kernel); bf16 at
+    serving phase prefills (S=1024), bf16 (the ``wgmma`` kernel); bf16 at
     recurrentgemma-2b's dh 256 (``"dh256"``), at qwen2-moe's heads
     (``"moe"``: 16/16, S=1024) and whisper's encoder (``"whisper_enc"``:
     20/20, dh 64, 1500 frames, non-causal); fp32 (the 3xTF32 kernel) at
     every fp32 serving shape of ``FLASH_TIMED``: ``"fp32"`` (qwen),
     ``"fp32_dh256"``, ``"fp32_stablelm"``, ``"fp32_whisper_enc"``."""
-    out = _time_flash(16, 2, 1024, 128, "bfloat16")
+    bf16 = {key: _time_flash(*shape[:4], "bfloat16", causal=shape[4],
+                             window=shape[5], iters=FLASH_ITERS.get(key, 50))
+            for key, shape in FLASH_BF16_TIMED.items()}
+    out = bf16.pop("qwen")
+    out.update(bf16)
     for key, shape in FLASH_TIMED.items():
         out["fp32" if key == "qwen" else f"fp32_{key}"] = _time_flash(
             *shape[:4], "float32", causal=shape[4], window=shape[5],
             iters=FLASH_ITERS.get(key, 50))
-    out["dh256"] = _time_flash(*FLASH_TIMED["dh256"][:4], "bfloat16",
-                               window=2048, iters=FLASH_ITERS["dh256"])
-    out["moe"] = _time_flash(16, 16, 1024, 128, "bfloat16")
-    out["whisper_enc"] = _time_flash(20, 20, 1500, 64, "bfloat16",
-                                     causal=False)
     return out
 
 
@@ -1092,10 +1133,13 @@ def cuda_kernel_names(fn):
 
 def _time_flash(H, KVH, S, dh, dtype_name, causal=True, window=None,
                 iters=50):
-    """``iters`` graph replays, eager calls and SDPA replays.  In fp32
-    the bound is at the 3xTF32 rate of the kernel's products
-    (``bound_ms``), with the CUDA cores' beside it
-    (``bound_cuda_core_ms``), and the name of the kernel SDPA launches."""
+    """``iters`` graph replays, eager calls and SDPA replays, and the
+    names of the kernels SDPA launches (``library_kernels``).  Beside the
+    contiguous call, ``strided_ms``: the same inputs as the transposed
+    views of (B,S,heads,dh) tensors that ``layers.full_attention`` passes
+    (read in place in bf16, copied in fp32).  In fp32 the bound is at the
+    3xTF32 rate of the kernel's products (``bound_ms``), with the CUDA
+    cores' beside it (``bound_cuda_core_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
@@ -1108,6 +1152,10 @@ def _time_flash(H, KVH, S, dh, dtype_name, causal=True, window=None,
     call = lambda: flash_attention(q, k, v, causal=causal, window=window)
     ms = graph_ms(call, iters=iters)
     enq = time_ms(call, iters=iters)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    strided = graph_ms(lambda: flash_attention(*views, causal=causal,
+                                               window=window), iters=iters)
     plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
                                                 window=window), iters=10)
     kr = k.repeat_interleave(H // KVH, dim=1)
@@ -1124,18 +1172,19 @@ def _time_flash(H, KVH, S, dh, dtype_name, causal=True, window=None,
     kind = _kind(dtype_name)
     mask = ("causal" if causal else "non-causal") + (
         f" window {window}" if window is not None else "")
-    out = {"ms": ms, "enqueue_ms": enq, "plain_ms": plain,
-           "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
+    lib_kernels = cuda_kernel_names(sdpa)
+    out = {"ms": ms, "enqueue_ms": enq, "strided_ms": strided,
+           "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lib, "library_kernels": lib_kernels,
            "shape": f"B=1 H={H} KVH={KVH} S={S} dh={dh} {mask} {kind} "
                     f"(library: SDPA, GQA heads expanded outside the "
-                    f"timing)"}
+                    f"timing; SDPA launches {lib_kernels}); strided views "
+                    f"{strided:.5f} ms"}
     if kind == "fp32":
         out["bound_cuda_core_ms"] = b_ms
         out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops, "tf32x3")
-        out["library_kernels"] = cuda_kernel_names(sdpa)
         out["shape"] += (f"; bound at the 3xTF32 rate, at the CUDA cores' "
-                         f"{b_ms:.5f} ms; SDPA launches "
-                         f"{out['library_kernels']}")
+                         f"{b_ms:.5f} ms")
     return out
 
 
@@ -3487,14 +3536,15 @@ def _dryrun_record(combo):
     return rec, time.perf_counter() - t0
 
 
-def dryrun_records(combos=None, workers: int = 4) -> None:
+def dryrun_records(combos=None, workers: int = 6) -> None:
     """14a: ``launch.dryrun.run_one`` at full width on the 16x16
     placeholder mesh (no device): every arch on decode_32k and long_500k
     (skipped exactly where ``specs.applicable`` says, as in JAX), qwen2.5-3b
     and qwen2-moe on train_4k and prefill_32k, their prefill also under
     ``tuned-moe``, then one ``dryrun_ewl`` record at its defaults; the
     records are traced in ``workers`` processes at once (host CPU work,
-    while the card idles; they run alone in their phase).  Each record
+    while the card idles; they run alone in their phase, on six of the
+    card machine's eight cores: the phase was the host's slowest).  Each record
     is printed on a line of its own, in order; an error fails the run."""
     import concurrent.futures
     import multiprocessing

@@ -167,3 +167,34 @@ def test_fp32_kernels_parses_and_prints_every_row(tmp_path, monkeypatch,
                 f"this [1.0, 1.0] mean 1.00000 ms;") in out
         assert f"[fp32-kernels] {row}: this / other = 0.500" in out
     assert out.rstrip().endswith("card, 700.00 W")
+
+
+@pytest.mark.parametrize("name", sorted(chip_compare.FLASH_ABLATIONS))
+def test_flash_ablations_find_their_text_and_functions(tmp_path, name):
+    """``flash-ablate`` must change what it says it changes: each source
+    patch finds its text in the repository's flash source, and each
+    replaced function exists in the wrapper's module."""
+    import sys as _sys
+    import repro_torch.kernels.flash_attention  # noqa: F401
+    fa = _sys.modules["repro_torch.kernels.flash_attention"]
+    patches, attr = chip_compare.FLASH_ABLATIONS[name]
+    dest = tmp_path / "csrc"
+    chip_compare.ablated_sources(patches, CSRC, dest)
+    before = (CSRC / "flash_attention.cu").read_text()
+    after = (dest / "flash_attention.cu").read_text()
+    assert (after != before) == bool(patches)
+    for old, new in patches:
+        assert new in after
+    if attr:
+        assert callable(getattr(fa, attr[0]))
+    assert patches or attr
+
+
+def test_flash_ablation_raises_when_its_text_is_gone(tmp_path):
+    src = tmp_path / "src"
+    shutil.copytree(CSRC, src)
+    path = src / "flash_attention.cu"
+    path.write_text(path.read_text().replace("ex2.approx", "ex2.exact"))
+    patches, _ = chip_compare.FLASH_ABLATIONS["no-exp"]
+    with pytest.raises(RuntimeError, match="was not found"):
+        chip_compare.ablated_sources(patches, src, tmp_path / "dest")

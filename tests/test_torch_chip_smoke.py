@@ -2,8 +2,10 @@
 output kept beside its built library, so the check holds when the
 libraries were built by an earlier process (a second run in the same
 checkout, after the card tests or ``chip_compare.py``) as when this one
-built them.  ``cuobjdump`` and ``nvcc`` exist only on the GPU machine:
-here the HMMA counts are given and the libraries are empty files.
+built them; each kernel's tensor-core opcodes (HMMA, HGMMA, UTMALDG) are
+held to its kind.  ``cuobjdump`` and ``nvcc`` exist only on the GPU
+machine: here the opcode counts are given and the libraries are empty
+files.
 """
 import sys
 from pathlib import Path
@@ -25,17 +27,23 @@ def ptxas_text(fns, spill):
         f"ptxas info    : Used 128 registers\n" for fn in fns)
 
 
+def sass_ops(kind):
+    """Opcode counts a kernel of ``kind`` has when it is built right."""
+    need, _ = chip_smoke.SASS_RULES[kind]
+    return {op: 8 if op in need else 0 for op in chip_smoke.SASS_OPS}
+
+
 @pytest.fixture
 def built(tmp_path, monkeypatch):
     """Every MMA_KERNELS source built earlier: a library and its nvcc
     output in the build directory, one mangled function per fragment with
-    HMMA unless its kind is "cuda"; returns a writer of one source's
-    output at a given spill."""
+    the opcodes its kind needs (``sass_ops``); returns a writer of one
+    source's output at a given spill."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    counts = {source: {f"_Z{len(frag)}{frag}v": 0 if kind == "cuda" else 8
+    counts = {source: {f"_Z{len(frag)}{frag}v": sass_ops(kind)
                        for frag, kind in kinds.items()}
               for source, kinds in chip_smoke.MMA_KERNELS.items()}
-    monkeypatch.setattr(chip_smoke, "hmma_counts", counts.__getitem__)
+    monkeypatch.setattr(chip_smoke, "sass_counts", counts.__getitem__)
 
     def write(source, spill=0):
         _build._lib_path(source).touch()
@@ -50,12 +58,39 @@ def test_check_hmma_reads_spills_of_an_earlier_build(built, capsys):
     chip_smoke.check_hmma()
     out = capsys.readouterr().out
     assert "flash_tf32x3_kernel" in out
+    assert "8 HGMMA, 8 UTMALDG in _Z18flash_wgmma_kernelv (wgmma)" in out
     assert "spill bytes None" not in out
 
 
 def test_check_hmma_fails_on_a_spilling_tf32_kernel(built):
     built("mlstm_chunkwise", spill=8)
     with pytest.raises(AssertionError, match="spills 16 bytes"):
+        chip_smoke.check_hmma()
+
+
+@pytest.mark.parametrize("ops", [{"HMMA": 8, "HGMMA": 0, "UTMALDG": 0},
+                                 {"HMMA": 0, "HGMMA": 8, "UTMALDG": 0},
+                                 {"HMMA": 4, "HGMMA": 8, "UTMALDG": 2}])
+def test_check_hmma_fails_on_a_flash_kernel_off_wgmma_and_tma(built,
+                                                              monkeypatch,
+                                                              ops):
+    """The bf16 flash kernel must run wgmma on tiles the TMA loaded, and no
+    mma.sync: an mma.sync build, one without tensor-map loads, and one
+    with both kinds of product all fail."""
+    given = chip_smoke.sass_counts
+
+    def counts(source):
+        return {fn: (ops if "flash_wgmma" in fn else n)
+                for fn, n in given(source).items()}
+    monkeypatch.setattr(chip_smoke, "sass_counts", counts)
+    with pytest.raises(AssertionError,
+                       match="must have HGMMA and UTMALDG and no HMMA"):
+        chip_smoke.check_hmma()
+
+
+def test_check_hmma_fails_on_a_spilling_wgmma_kernel(built):
+    built("flash_attention", spill=4)
+    with pytest.raises(AssertionError, match="flash_wgmma_kernelv spills 8"):
         chip_smoke.check_hmma()
 
 

@@ -9,9 +9,10 @@ without the suite's JAX fixture:
 Shapes are the fuzz harness's buckets (``tests/test_kernel_fuzz.py``) and
 the RG-LRU sweep of ``tests/test_kernels.py``, which reach widths the
 serving path never uses (dh=8, 4-token pages), plus the paths of the bf16
-and fp32 (3xTF32) tensor-core flash kernels (padded head dims, S below one
-mma tile; the fp32 one also held to an fp64 run, at most 4x the fp32
-plain version's error) and of
+(wgmma) and fp32 (3xTF32) tensor-core flash kernels (padded head dims, S
+around their tiles; bf16 also on the transposed views the model passes,
+its SASS held to wgmma on tensor-map loads; the fp32 one also held to an
+fp64 run, at most 4x the fp32 plain version's error) and of
 the fused step's split walk (few slots with long lens, empty shares, FREE
 rows, 100 steps on one pool) and the heads of every family's config
 (qwen2-moe 16/16, pixtral 32/8, llama4 40/8, whisper 20/20 at dh 64,
@@ -221,11 +222,15 @@ def test_flash_attention_kernel_matches_plain(cuda, bidx):
 
 
 
-# the bf16 tensor-core kernel's paths: head dims padded to the 64, 128 and
-# 256 buckets (8, 24, 192) and exact (64, 256); S below one 16-row mma
-# tile, at it, past it, past one 64-row tile, several tiles
-FLASH_MMA_DH = [8, 24, 64, 192, 256]
-FLASH_MMA_S = [1, 5, 15, 16, 17, 65, 200]
+# the bf16 wgmma kernel's paths: head dims padded to the 64, 128 and 256
+# buckets (8, 24, 192) and exact (64, 128, 256); S below one 64-row query
+# tile, at it and around it, around one 128-key block (the key tile of
+# the 64 and 128 buckets; two of the 256 bucket's 64-key blocks), many
+# tiles (a causal pair then spans many blocks, and its longer walk is
+# shared between the two warpgroups)
+FLASH_MMA_DH = [8, 24, 64, 128, 192, 256]
+FLASH_MMA_S = [1, 5, 15, 16, 17, 63, 64, 65, 127, 128, 129, 200, 1000,
+               2600]
 
 
 @pytest.mark.gpu
@@ -248,6 +253,57 @@ def test_flash_attention_bf16_mma_buckets(cuda, dh, S):
         torch.testing.assert_close(
             out.float(), ref.float(), atol=2e-2, rtol=2e-2,
             msg=lambda m: f"causal={causal} window={window}\n{m}")
+
+
+# (g, dh, S): query heads per KV head (2 KV heads), head dim, length
+FLASH_VIEWS = [(g, dh, S) for g in (1, 2, 8, 10) for dh in (64, 128, 256)
+               for S in (1, 129, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(FLASH_VIEWS)))
+def test_flash_attention_bf16_reads_strided_views(cuda, case):
+    """The transposed views ``layers.full_attention`` passes (heads of a
+    (B, S, heads, dh) projection), B = 2: read in place through the tensor
+    maps, written to an output with q's strides; causal, a window smaller
+    than one tile, non-causal."""
+    g, dh, S = FLASH_VIEWS[case]
+    B, KVH = 2, 2
+    H = g * KVH
+    for i, (causal, window) in enumerate([(True, None), (True, 40),
+                                          (False, None)]):
+        rng = np.random.default_rng([SEED, 13, case, i])
+        q, k, v = (_t(rng.standard_normal((B, S, h, dh)), "bf16",
+                      cuda).transpose(1, 2) for h in (H, KVH, KVH))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if S > 1:        # a length of one makes the view contiguous
+            assert out.stride() == q.stride() and not q.is_contiguous()
+        torch.testing.assert_close(
+            out.float(), ref.float(), atol=2e-2, rtol=2e-2,
+            msg=lambda m: f"causal={causal} window={window}\n{m}")
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_sass_is_wgmma_on_tma(cuda):
+    """``cuobjdump -sass`` of the built library: every instance of the
+    bf16 kernel holds warpgroup products (HGMMA) and tensor-map loads
+    (UTMALDG) and no mma.sync (HMMA); the fp32 kernel beside it is left to
+    its own checks."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.kernels import _build
+    _build.build_all(["flash_attention"])
+    fns = {fn: ops for fn, ops in
+           chip_smoke.sass_counts("flash_attention").items()
+           if "flash_wgmma_kernel" in fn}
+    assert len(fns) == 3, sorted(fns)           # buckets 64, 128, 256
+    for fn, ops in fns.items():
+        assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, (fn, ops)
+        assert ops["HMMA"] == 0, (fn, ops)
 
 
 # the fp32 tensor-core kernel's (3xTF32) paths: head dims padded to the
